@@ -1,0 +1,14 @@
+"""Huber robust kernel (counterpart of `hortimapping_tpu/ops/robust.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def huber_weights(res_norm: torch.Tensor, b: float) -> torch.Tensor:
+    """w(|r|) = sqrt(rho(|r|))/|r|, w = 1 inside the window. Keeps the
+    reference's w(0) = 0 (the division is guarded while rho(0) = 0)."""
+    x = torch.abs(res_norm)
+    rho = torch.where(x <= b, x * x, 2.0 * b * x - b * b)
+    x_safe = torch.where(x == 0.0, torch.ones_like(x), x)
+    return torch.sqrt(torch.clamp(rho, min=0.0)) / x_safe

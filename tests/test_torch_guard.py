@@ -1,0 +1,86 @@
+"""The port stands alone: no file of `hortimapping_tpu_torch/` imports JAX or
+the JAX package, importing it loads neither, and its entry points refuse to
+run on a missing card unless asked for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "hortimapping_tpu_torch")
+
+# `hortimapping_tpu` as a whole word: the port's own name starts with it
+JAX_PKG = re.compile(r"\bhortimapping_tpu\b(?!_torch)")
+JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        if "_build" in dirpath:
+            continue
+        for fn in files:
+            if fn.endswith((".py", ".cu", ".cuh", ".cpp")):
+                yield os.path.join(dirpath, fn)
+
+
+def test_sources_do_not_import_jax_or_the_jax_package():
+    files = list(_sources())
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        assert not JAX_IMPORT.search(text), path
+        for line in text.splitlines():
+            if "import" in line:
+                assert not JAX_PKG.search(line), f"{path}: {line}"
+
+
+def test_name_pattern_tells_the_packages_apart():
+    assert JAX_PKG.search("from hortimapping_tpu.ops import lie")
+    assert JAX_PKG.search("import hortimapping_tpu")
+    assert not JAX_PKG.search("from hortimapping_tpu_torch.ops import lie")
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import hortimapping_tpu_torch.optim.warmstart, hortimapping_tpu_torch.optim.lm\n"
+        "import hortimapping_tpu_torch.ops.mesher, hortimapping_tpu_torch.ops.render_kernel\n"
+        "import hortimapping_tpu_torch.metrics.chamfer, hortimapping_tpu_torch.tools.synthetic\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'hortimapping_tpu' or m.startswith('hortimapping_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from hortimapping_tpu_torch import resolve_device
+    from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim.lm import coarse_to_fine_joint_opt
+    from hortimapping_tpu_torch.optim.warmstart import retrieval_joint_opt
+
+    assets = os.path.join(ROOT, "assets", "synthetic_small_8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        config_decoder(assets)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_latent_vectors(assets)
+    params, spec = config_decoder(assets, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshExtractor(params, spec, voxels_dim=8)
+    for fn in (retrieval_joint_opt, coarse_to_fine_joint_opt):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(params, spec, None, None, None, None, 0.08)
+    assert resolve_device("cpu") == torch.device("cpu")
