@@ -12,13 +12,16 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      under a tight tolerance;
   4. the main path: the bench.py workload (32 synthetic peppers, seed 42) at
      the full width of assets/synthetic_pepper_32 through retrieval warm
-     start, coarse-to-fine LM and meshing at 40^3, timed, with Chamfer-L1
-     against the analytic GT surfaces and the launch counts of both kernels;
+     start, coarse-to-fine LM and meshing at 40^3, timed (whole batch, and
+     split into solve / grid decode / host marching tetrahedra), with
+     Chamfer-L1 against the analytic GT surfaces and the launch counts of
+     both kernels; with --profile FILE, one more batch traced by
+     torch.profiler (its device-time table written to FILE);
   5. the functional gate: the same solve with the plain versions swapped in
      must reach the same mean Chamfer-L1 within 0.3 mm;
   6. one JSON line per kernel record, then the JSON result line.
 
-Run from the repository root: python3 chip_smoke.py [--quick]
+Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 3). The JAX package is never imported.
 """
 
@@ -145,9 +148,31 @@ def render_gates(got, want, lane_active):
     return out
 
 
+def profile_main(run, smi, path: str) -> None:
+    """Trace one main-path batch with torch.profiler: the device-time table
+    goes to `path`, one summary line to stdout."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"{smi}\nwall {wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.1f} ms\n")
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+    print(f"profile: one traced batch {wall * 1e3:.1f} ms wall, kernels busy {dev_us / 1e3:.1f} ms "
+          f"(device idle share {1 - dev_us / 1e3 / (wall * 1e3):.3f}; table in {path})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="stop after the kernel phases")
+    ap.add_argument("--profile", metavar="FILE",
+                    help="also trace one main-path batch with torch.profiler, table to FILE")
     args = ap.parse_args()
 
     import torch
@@ -296,12 +321,21 @@ def main() -> int:
     # ---------------- 4. main path ----------------
     mesher = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS, device=dev)
 
+    split = {}
+
     def run():
+        t0 = time.perf_counter()
         res = retrieval_joint_opt(
             params, spec, cfg, table, obs, T0, CUBE_RADIUS, n_score_pts=128, n_scales=1,
             scale_min=1.0, scale_max=1.0, score_bf16=True, device=dev)
-        meshes = mesher.meshes_from_grids(mesher.decode_grids(res.latent))
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grids = mesher.decode_grids(res.latent)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        meshes = mesher.meshes_from_grids(grids)
+        torch.cuda.synchronize()
+        split.update(solve=t1 - t0, decode=t2 - t1, mt=time.perf_counter() - t2)
         return res, meshes
 
     def mean_cd_mm(res, meshes):
@@ -314,7 +348,7 @@ def main() -> int:
         return float(np.mean(cds)) * 1e3
 
     run()  # warm-up: first launches, cuBLAS/cuSOLVER handles
-    times, counts = [], None
+    times, splits, counts = [], [], None
     for _ in range(3):
         mlp_kernels.launches = 0
         render_kernel.launches = 0
@@ -322,6 +356,7 @@ def main() -> int:
         res, meshes = run()
         times.append(time.perf_counter() - t0)
         counts = (mlp_kernels.launches, render_kernel.launches)
+        splits.append(dict(split))
     assert counts[0] > 0 and counts[1] > 0, counts
     assert not bool(res.failed.any())
     assert bool(torch.isfinite(res.latent).all()) and bool(torch.isfinite(res.T_ow).all())
@@ -335,6 +370,11 @@ def main() -> int:
           f"{[round(t * 1e3, 1) for t in times]}), {ms_batch / N_FRUITS:.2f} ms/fruit | "
           f"mean iters {float(res.iter_count.float().mean()):.2f} | mean CD-L1 {cd_k:.4f} mm | "
           f"launches mlp_fwd_grad {counts[0]}, fused_render {counts[1]} | {smi}", flush=True)
+    med = {k: float(np.median([s[k] for s in splits])) * 1e3 for k in splits[0]}
+    print(f"main path split (median ms): retrieval + LM {med['solve']:.1f}, grid decode "
+          f"{med['decode']:.1f}, host marching tetrahedra {med['mt']:.1f}", flush=True)
+    if args.profile:
+        profile_main(run, smi, args.profile)
 
     # ---------------- 5. functional gate: plain versions swapped in ----------------
     saved = (mlp_kernels._fwd_grad_cuda, render_kernel._fused_render_cuda)

@@ -6,42 +6,59 @@
 // the same reason: the standalone kernel (mlp_fwd_grad.cu) and the fused
 // render kernel (fused_render.cu) can never drift apart.
 //
-// Layout on Hopper (not the TPU's): a block of 256 threads pushes a chunk of
-// 32 rows through the chain. Activations of the chunk live in shared memory
-// as f32 [32][D]; each thread owns 8 rows x 8 columns (columns tx + 64 j, so
-// a warp reads 32 consecutive weights and writes 32 consecutive activations)
-// and accumulates in registers with f32 FMA on the CUDA cores. Weights
-// (3.7 MB in bf16, 7.4 MB in f32 for 8x512) stay in L2 and stream through L1
-// layer by layer. The latent_in skip adds x into the last C+3 columns of
-// layer li's input (layer li-1's padded columns are zero), the backward adds
-// those columns of g into grad_x. The backward keeps only one bit per
-// activation: the ReLU sign masks, written with one warp ballot per 32
-// columns.
+// Layout on Hopper (not the TPU's): a block of 256 threads (8 warps) pushes
+// a chunk of 32 rows through the chain; the activations of the chunk live in
+// shared memory and never reach device memory. Weights (3.7 MB in bf16,
+// 7.4 MB in f32 for 8x512) stay in L2 and stream through L1 layer by layer.
+// The latent_in skip writes x into the last C+3 columns of layer li's input
+// (layer li-1's padded output columns are zero); the backward adds those
+// columns of g into grad_x. The backward keeps one bit per activation: the
+// ReLU sign masks.
 //
-// Storage type WT is float or __nv_bfloat16. With bf16 every matmul operand
-// is rounded to bf16 (as the JAX package's `.astype(cdt)` before each dot)
-// and products accumulate in f32; bf16 x bf16 products are exact in f32, so
-// this is the bf16-input / f32-accumulate matmul of the TPU kernels. f32
-// storage runs true f32 FMA (no TF32 anywhere).
+// Storage type WT picks the arithmetic:
+//   * float: f32 FMA on the CUDA cores (no TF32 anywhere). Activations f32
+//     [32][D]; each thread owns 8 rows x 8 columns (columns tx + 64 j: a warp
+//     reads 32 consecutive weights, writes 32 consecutive activations).
+//   * __nv_bfloat16: tensor cores, mma.sync m16n8k16 with f32 accumulation.
+//     Activations bf16 [32][D + 8] (the pad spreads fragment loads over the
+//     banks); each warp owns both 16-row tiles of n-tiles warp + 8 t and
+//     streams its B fragments from L2 through its own cp.async ring. Every
+//     matmul operand is rounded to bf16 first, as the JAX package's
+//     `.astype(cdt)` before each dot; bf16 x bf16 products are exact in f32.
+//
+// At 32 rows a chunk every weight is fetched from L2 once per 32 rows: 32
+// FLOP a byte, so the bf16 chain runs near the L2's rate (~93 TFLOP/s at
+// 8x512 on an H100, weights read at ~2.6 TB/s, see PERF.md); more rows per
+// weight fetch (wider tiles, clusters sharing a TMA multicast, wgmma) is the
+// next step.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace horti {
 
-constexpr int kThreads = 256;          // 4 row groups x 64 column threads
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;             // rows per pass through the chain
-constexpr int kColThreads = 64;
-constexpr int kCols = 8;               // columns per thread: tx + 64 j
-constexpr int kRows = 8;               // rows per thread: 8 ty .. 8 ty + 7
+constexpr int kColThreads = 64;        // f32 path: 4 row groups x 64 column threads
+constexpr int kCols = 8;               // f32 path: columns per thread, tx + 64 j
+constexpr int kRows = 8;               // f32 path: rows per thread, 8 ty .. 8 ty + 7
 constexpr int kMaxWidth = kColThreads * kCols;  // 512
+constexpr int kMaxNT = kMaxWidth / 8 / kWarps;  // bf16 path: n-tiles per warp
+constexpr int kPadBf16 = 8;            // bf16 row pad (elements)
+constexpr int kStages = 4;             // bf16 path: k-steps of weights in flight per warp
+constexpr int kStageBytes = kMaxNT * 8 * 32;  // one warp's B fragments of one k-step
 
 template <typename WT>
 struct DecoderWeights {
   const WT* w0;     // [in_dim][D]  layer 0, [in][out]
-  const WT* w0t;    // [D][in_dim]  layer 0 transposed, for the backward
+  const WT* w0t;    // [D][in_dim]  layer 0 transposed (f32 path backward)
+  const WT* w0tk;   // [D][round16(in_dim)] layer 0 transposed, zero-padded in k (bf16 forward)
   const WT* wm;     // [n_mid][D][D] layers 1..n_mid, [in][out]
   const WT* wmt;    // [n_mid][D][D] the same transposed, [out][in]
   const WT* wl;     // [D] head weights (single output column)
@@ -51,8 +68,66 @@ struct DecoderWeights {
   int D, n_mid, li, in_dim;  // li = 0: no latent_in skip
 };
 
+__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
+
+// Shared-memory buffers of one chunk: h activations, x input (rounded to
+// WT, zero past in_dim), gx input gradient f32 [kChunk][in_dim], y tanh out,
+// and (bf16 path) each warp's ring of weight fragments in flight.
+struct ChainBuf {
+  unsigned char* ring;
+  void* h;
+  void* x;
+  float* gx;
+  float* y;
+  int ldh, ldx, xcols;
+};
+
+template <typename WT>
+__host__ __device__ inline void chain_dims(int D, int in_dim, int& ldh, int& ldx, int& xcols) {
+  if (std::is_same<WT, bf16>::value) {
+    ldh = D + kPadBf16;
+    xcols = round16(in_dim);
+    ldx = xcols + kPadBf16;
+  } else {
+    ldh = D;
+    xcols = in_dim;
+    ldx = in_dim;
+  }
+}
+
+template <typename WT>
+__host__ __device__ inline size_t ring_bytes() {
+  return std::is_same<WT, bf16>::value ? (size_t)kWarps * kStages * kStageBytes : 0;
+}
+
+template <typename WT>
+__host__ __device__ inline size_t chain_buf_bytes(int D, int in_dim) {
+  int ldh, ldx, xcols;
+  chain_dims<WT>(D, in_dim, ldh, ldx, xcols);
+  return ring_bytes<WT>() + align16((size_t)kChunk * ldh * sizeof(WT)) +
+         align16((size_t)kChunk * ldx * sizeof(WT)) +
+         align16((size_t)kChunk * in_dim * sizeof(float)) + align16(kChunk * sizeof(float));
+}
+
+template <typename WT>
+__device__ inline ChainBuf chain_carve(unsigned char* base, int D, int in_dim) {
+  ChainBuf b;
+  chain_dims<WT>(D, in_dim, b.ldh, b.ldx, b.xcols);
+  b.ring = base;
+  base += ring_bytes<WT>();
+  b.h = base;
+  base += align16((size_t)kChunk * b.ldh * sizeof(WT));
+  b.x = base;
+  base += align16((size_t)kChunk * b.ldx * sizeof(WT));
+  b.gx = reinterpret_cast<float*>(base);
+  base += align16((size_t)kChunk * in_dim * sizeof(float));
+  b.y = reinterpret_cast<float*>(base);
+  return b;
+}
+
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
 // round to the storage type (identity for f32)
 template <typename WT>
@@ -60,8 +135,13 @@ __device__ __forceinline__ float round_st(float v);
 template <>
 __device__ __forceinline__ float round_st<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ float round_st<__nv_bfloat16>(float v) {
+__device__ __forceinline__ float round_st<bf16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename WT>
+__device__ __forceinline__ void chain_store_x(ChainBuf& b, int r, int i, float v) {
+  reinterpret_cast<WT*>(b.x)[r * b.ldx + i] = static_cast<WT>(round_st<WT>(v));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -70,12 +150,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Word layout of the ReLU sign masks of one chunk: [layer][row][D / 32].
+__host__ __device__ inline size_t mask_layer_words(int D) { return (size_t)kChunk * (D / 32); }
+__host__ __device__ inline size_t chain_mask_words(int D, int n_mid) {
+  return (size_t)(n_mid + 1) * mask_layer_words(D);
+}
+
+__device__ __forceinline__ bool mask_bit(const uint32_t* mk, int words, int r, int c) {
+  return (mk[r * words + c / 32] >> (c % 32)) & 1u;
+}
+
+// ------------------------------------------------------------------ f32 path
+
 // acc[i][j] = sum_k in[(8 ty + i) * ld_in + k] * W[k * N + tx + 64 j].
 // Ends with a barrier, so the caller may overwrite `in` with the result.
-template <typename WT>
-__device__ __forceinline__ void chunk_matmul(const float* __restrict__ in, int ld_in, int K,
-                                             const WT* __restrict__ W, int N,
-                                             float (&acc)[kRows][kCols]) {
+__device__ __forceinline__ void fma_matmul(const float* __restrict__ in, int ld_in, int K,
+                                           const float* __restrict__ W, int N,
+                                           float (&acc)[kRows][kCols]) {
   const int tx = threadIdx.x % kColThreads;
   const int ty = threadIdx.x / kColThreads;
 #pragma unroll
@@ -83,59 +174,237 @@ __device__ __forceinline__ void chunk_matmul(const float* __restrict__ in, int l
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   const float* a_rows = in + ty * kRows * ld_in;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const WT* wk = W + (size_t)k * N;
-    float w[kCols];
+  // The weights of the next k-step are loaded while this one multiplies; a
+  // column past N loads column N - 1 and is zeroed, so no load sits in a
+  // branch. Where rows allow it a step is 4 k wide (one 16-byte load of A
+  // per row); the sums run in k order either way.
+  auto load_w = [&](float (&dst)[kCols], int k) {
+    const float* wk = W + (size_t)k * N;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = tx + kColThreads * j;
-      w[j] = c < N ? to_float(wk[c]) : 0.f;
+      const float v = __ldg(wk + min(c, N - 1));
+      dst[j] = c < N ? v : 0.f;
     }
+  };
+  if (K % 4 == 0 && ld_in % 4 == 0) {
+    float w[4][kCols], wn[4][kCols];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float a = a_rows[i * ld_in + k];
+    for (int q = 0; q < 4; ++q) load_w(w[q], q);
+#pragma unroll 1
+    for (int k = 0; k < K; k += 4) {
+      const int kn = min(k + 4, K - 4);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
+      for (int q = 0; q < 4; ++q) load_w(wn[q], kn + q);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(a_rows + i * ld_in + k);
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          acc[i][j] = fmaf(a.x, w[0][j], acc[i][j]);
+          acc[i][j] = fmaf(a.y, w[1][j], acc[i][j]);
+          acc[i][j] = fmaf(a.z, w[2][j], acc[i][j]);
+          acc[i][j] = fmaf(a.w, w[3][j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) w[q][j] = wn[q][j];
+    }
+  } else {
+    float w[kCols], wn[kCols];
+    load_w(w, 0);
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      load_w(wn, min(k + 1, K - 1));
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float a = a_rows[i * ld_in + k];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) w[j] = wn[j];
     }
   }
   __syncthreads();
 }
 
-// Word layout of the ReLU sign masks of one chunk: [layer][row][D / 32].
-__device__ __forceinline__ size_t mask_layer_words(int D) { return (size_t)kChunk * (D / 32); }
+// ------------------------------------------------------------------ bf16 path
 
-// Forward of one chunk. x: [kChunk][in_dim], already rounded to WT (rows past
-// the data are zero). h: [kChunk][D] scratch. masks: (n_mid + 1) layers of
-// ReLU signs. y: [kChunk] tanh output. Every thread of the block calls it.
-template <typename WT>
-__device__ void chain_forward(const DecoderWeights<WT>& w, const float* __restrict__ x,
-                              float* __restrict__ h, uint32_t* __restrict__ masks,
-                              float* __restrict__ y) {
-  const int tx = threadIdx.x % kColThreads;
-  const int ty = threadIdx.x / kColThreads;
-  const int lane = threadIdx.x & 31;
-  const int D = w.D, words = D / 32, in_dim = w.in_dim;
-  float acc[kRows][kCols];
-  for (int l = 0; l <= w.n_mid; ++l) {
-    if (l == 0) {
-      chunk_matmul<WT>(x, in_dim, in_dim, w.w0, D, acc);
-    } else {
-      chunk_matmul<WT>(h, D, D, w.wm + (size_t)(l - 1) * D * D, D, acc);
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+// 16-byte global -> shared copy that bypasses L1; valid = false writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+// acc[mt][t] (16 x 8 tiles, rows 16 mt .., columns 8 (warp + 8 t) ..) =
+// A [32][K] (bf16 smem, row stride lda) @ B, with B given transposed as
+// Bt [N][K] (bf16 global, row stride ldb, ldb % 8 == 0). K % 16 == 0. Ends
+// with a barrier.
+//
+// Each warp streams its own B fragments through a ring of kStages k-steps
+// in shared memory with cp.async, so kStages - 1 steps of weight loads are
+// in flight while one step multiplies, without registers to hold them. A
+// stage holds, per n-tile, 8 rows of 32 bytes (16 k values); rows 4..7 swap
+// their two 16-byte halves so the fragment reads hit 32 distinct banks.
+// Rows past N are zero-filled.
+__device__ __forceinline__ void mma_matmul(const bf16* __restrict__ A, int lda, int K,
+                                           const bf16* __restrict__ Bt, int ldb, int N,
+                                           unsigned char* ring, float (&acc)[2][kMaxNT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int NT = (N + 7) / 8, steps = K / 16;
+  unsigned char* wring = ring + (size_t)warp * kStages * kStageBytes;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+  // lane copies 16-byte pieces i = lane + 32 j: n-tile i / 16, row (i / 2) % 8, half i % 2
+  auto issue = [&](int step) {
+    if (step < steps) {
+      unsigned char* st = wring + (step % kStages) * kStageBytes;
+#pragma unroll
+      for (int j = 0; j < kMaxNT * 16 / 32; ++j) {
+        const int i = lane + 32 * j, t = i / 16, r = (i / 2) % 8, hf = i % 2;
+        const int n = (warp + kWarps * t) * 8 + r;
+        const bf16* src = Bt + (size_t)(n < N ? n : 0) * ldb + step * 16 + hf * 8;
+        cp_async16(st + t * 256 + r * 32 + ((hf ^ (r >> 2)) * 16), src, n < N);
+      }
     }
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    issue(step + kStages - 1);
+    cp_async_wait_stages();  // this step's group has landed
+    __syncwarp();
+    const int k0 = step * 16;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const bf16* ar = A + (mt * 16 + g) * lda + k0 + tq * 2;
+      a[mt][0] = lds32(ar);
+      a[mt][1] = lds32(ar + 8 * lda);
+      a[mt][2] = lds32(ar + 8);
+      a[mt][3] = lds32(ar + 8 * lda + 8);
+    }
+    const unsigned char* st = wring + (step % kStages) * kStageBytes + g * 32 + tq * 4;
+    const int h0 = (g >> 2) * 16, h1 = 16 - h0;
+#pragma unroll
+    for (int t = 0; t < kMaxNT; ++t) {
+      if (warp + kWarps * t < NT) {  // warp-uniform
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(st + t * 256 + h0);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(st + t * 256 + h1);
+        mma_16816(acc[0][t], a[0], b0, b1);
+        mma_16816(acc[1][t], a[1], b0, b1);
+      }
+    }
+    __syncwarp();  // every lane has read the stage before it is refilled
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// ReLU sign words of one layer from the stored bf16 activations.
+__device__ __forceinline__ void masks_from_bf16(const bf16* h, int ldh, int D, uint32_t* mk) {
+  const int words = D / 32;
+  for (int e = threadIdx.x; e < kChunk * words; e += kThreads) {
+    const bf16* p = h + (e / words) * ldh + (e % words) * 32;
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) bits |= (__bfloat162float(p[b]) > 0.f ? 1u : 0u) << b;
+    mk[e] = bits;
+  }
+}
+
+// ------------------------------------------------------------------ chain
+
+// Forward of one chunk: reads buf.x, writes the masks ((n_mid + 1) layers)
+// and buf.y. Every thread of the block calls it.
+template <typename WT>
+__device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
+                              uint32_t* __restrict__ masks) {
+  const int lane = threadIdx.x & 31;
+  const int D = w.D, words = D / 32, in_dim = w.in_dim, ldh = buf.ldh;
+  WT* h = reinterpret_cast<WT*>(buf.h);
+  const WT* x = reinterpret_cast<const WT*>(buf.x);
+  for (int l = 0; l <= w.n_mid; ++l) {
     const float* bias = l == 0 ? w.b0 : w.bm + (size_t)(l - 1) * D;
     uint32_t* mk = masks + (size_t)l * mask_layer_words(D);
+    if constexpr (std::is_same<WT, bf16>::value) {
+      float acc[2][kMaxNT][4];
+      if (l == 0) {
+        mma_matmul(x, buf.ldx, buf.xcols, w.w0tk, buf.xcols, D, buf.ring, acc);
+      } else {
+        mma_matmul(h, ldh, D, w.wmt + (size_t)(l - 1) * D * D, D, D, buf.ring, acc);
+      }
+      const int g = lane >> 2, tq = lane & 3, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty * kRows + i;
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + kColThreads * j;
-        if (c < D) {  // warp-uniform: D is a multiple of 128
-          const float v = fmaxf(acc[i][j] + bias[c], 0.f);
-          const unsigned bits = __ballot_sync(0xffffffffu, v > 0.f);
-          if (lane == 0) mk[r * words + c / 32] = bits;
-          h[r * D + c] = round_st<WT>(v);
+        for (int t = 0; t < kMaxNT; ++t) {
+          const int c = (warp + kWarps * t) * 8 + tq * 2;
+          if (c < D) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int r = mt * 16 + g + hf * 8;
+              const float v0 = fmaxf(acc[mt][t][2 * hf] + bias[c], 0.f);
+              const float v1 = fmaxf(acc[mt][t][2 * hf + 1] + bias[c + 1], 0.f);
+              *reinterpret_cast<__nv_bfloat162*>(h + r * ldh + c) = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+      __syncthreads();
+      masks_from_bf16(h, ldh, D, mk);
+    } else {
+      float acc[kRows][kCols];
+      if (l == 0) {
+        fma_matmul(x, in_dim, in_dim, w.w0, D, acc);
+      } else {
+        fma_matmul(h, D, D, w.wm + (size_t)(l - 1) * D * D, D, acc);
+      }
+      const int tx = threadIdx.x % kColThreads, ty = threadIdx.x / kColThreads;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = ty * kRows + i;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int c = tx + kColThreads * j;
+          if (c < D) {  // warp-uniform: D is a multiple of 128
+            const float v = fmaxf(acc[i][j] + bias[c], 0.f);
+            const unsigned bits = __ballot_sync(0xffffffffu, v > 0.f);
+            if (lane == 0) mk[r * words + c / 32] = bits;
+            h[r * D + c] = v;
+          }
         }
       }
     }
@@ -145,95 +414,101 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, const float* __restri
       // layer li-1 are zero-padded, so the concat is a write into them
       for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) {
         const int r = e / in_dim, i = e % in_dim;
-        h[r * D + D - in_dim + i] = x[e];
+        h[r * ldh + D - in_dim + i] = x[r * buf.ldx + i];
       }
       __syncthreads();
     }
   }
   // head: one warp per row, tanh(h . wl + bl)
   const int warp = threadIdx.x / 32;
-  for (int r = warp; r < kChunk; r += kThreads / 32) {
+  for (int r = warp; r < kChunk; r += kWarps) {
     float s = 0.f;
-    for (int c = lane; c < D; c += 32) s = fmaf(h[r * D + c], to_float(w.wl[c]), s);
+    for (int c = lane; c < D; c += 32) s = fmaf(to_float(h[r * ldh + c]), to_float(w.wl[c]), s);
     s = warp_sum(s);
-    if (lane == 0) y[r] = tanhf(s + w.bl);
+    if (lane == 0) buf.y[r] = tanhf(s + w.bl);
   }
   __syncthreads();
 }
 
-// g = round(g * relu_mask(layer)) in place.
-template <typename WT>
-__device__ __forceinline__ void apply_mask(float* __restrict__ g, const uint32_t* __restrict__ mk,
-                                           int D) {
-  const int words = D / 32;
-  for (int e = threadIdx.x; e < kChunk * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const bool on = (mk[r * words + c / 32] >> (c % 32)) & 1u;
-    g[e] = on ? round_st<WT>(g[e]) : 0.f;
-  }
-  __syncthreads();
-}
-
-// gx[r][i] += round(g[r][D - in_dim + i]): the latent_in skip's share.
-template <typename WT>
-__device__ __forceinline__ void add_skip_grad(const float* __restrict__ g, float* __restrict__ gx,
-                                              int D, int in_dim) {
-  for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) {
-    const int r = e / in_dim, i = e % in_dim;
-    gx[e] += round_st<WT>(g[r * D + D - in_dim + i]);
-  }
-  __syncthreads();
-}
-
-// Input gradient d y / d x of one chunk from its masks and tanh outputs y.
-// g: [kChunk][D] scratch (may alias the forward's h). gx: [kChunk][in_dim].
+// Input gradient d y / d x of one chunk from its masks and tanh outputs y,
+// into buf.gx. Uses buf.h as scratch for g.
 template <typename WT>
 __device__ void chain_input_grad(const DecoderWeights<WT>& w, const uint32_t* __restrict__ masks,
-                                 const float* __restrict__ y, float* __restrict__ g,
-                                 float* __restrict__ gx) {
-  const int tx = threadIdx.x % kColThreads;
-  const int ty = threadIdx.x / kColThreads;
-  const int D = w.D, in_dim = w.in_dim;
+                                 const float* __restrict__ y, ChainBuf& buf) {
+  const int D = w.D, in_dim = w.in_dim, words = D / 32, ldh = buf.ldh, skip0 = D - in_dim;
+  WT* g = reinterpret_cast<WT*>(buf.h);
+  float* gx = buf.gx;
+  const bool skip_head = w.n_mid + 1 == w.li;
+  // g at the head's input; the skip takes its share unmasked, the chain
+  // continues with the mask of the last hidden layer
+  for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) {
+    const int r = e / in_dim;
+    gx[e] = skip_head ? round_st<WT>(round_st<WT>(1.f - y[r] * y[r]) *
+                                     to_float(w.wl[skip0 + e % in_dim]))
+                      : 0.f;
+  }
+  const uint32_t* mk_top = masks + (size_t)w.n_mid * mask_layer_words(D);
   for (int e = threadIdx.x; e < kChunk * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    g[e] = round_st<WT>(1.f - y[r] * y[r]) * to_float(w.wl[c]);
+    const float v = round_st<WT>(1.f - y[r] * y[r]) * to_float(w.wl[c]);
+    g[r * ldh + c] = static_cast<WT>(mask_bit(mk_top, words, r, c) ? round_st<WT>(v) : 0.f);
   }
-  for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) gx[e] = 0.f;
   __syncthreads();
-  if (w.n_mid + 1 == w.li) add_skip_grad<WT>(g, gx, D, in_dim);
-  float acc[kRows][kCols];
-  for (int j = w.n_mid - 1; j >= 0; --j) {
-    apply_mask<WT>(g, masks + (size_t)(j + 1) * mask_layer_words(D), D);
-    chunk_matmul<WT>(g, D, D, w.wmt + (size_t)j * D * D, D, acc);
+  for (int j = w.n_mid - 1; j >= -1; --j) {
+    // g (masked, rounded) @ W_{j+1}^T; j = -1 is layer 0 into gx
+    const bool last = j < 0;
+    const int N = last ? in_dim : D;
+    const uint32_t* mk_next = last ? nullptr : masks + (size_t)j * mask_layer_words(D);
+    const bool skip_here = !last && j + 1 == w.li;
+    if constexpr (std::is_same<WT, bf16>::value) {
+      float acc[2][kMaxNT][4];
+      mma_matmul(g, ldh, D, last ? w.w0 : w.wm + (size_t)j * D * D, D, N, buf.ring, acc);
+      const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const int c = tx + kColThreads * jj;
-        if (c < D) g[(ty * kRows + i) * D + c] = acc[i][jj];
-      }
-    __syncthreads();
-    if (j + 1 == w.li) add_skip_grad<WT>(g, gx, D, in_dim);
-  }
-  apply_mask<WT>(g, masks, D);
-  chunk_matmul<WT>(g, D, D, w.w0t, in_dim, acc);
+        for (int t = 0; t < kMaxNT; ++t) {
+          const int c0 = (warp + kWarps * t) * 8 + tq * 2;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = mt * 16 + gq + hf * 8;
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) {
-      const int c = tx + kColThreads * jj;
-      if (c < in_dim) gx[(ty * kRows + i) * in_dim + c] += acc[i][jj];
+            for (int q = 0; q < 2; ++q) {
+              const int c = c0 + q;
+              if (c >= N) continue;
+              const float v = acc[mt][t][2 * hf + q];
+              if (last) {
+                gx[r * in_dim + c] += v;
+              } else {
+                if (skip_here && c >= skip0) gx[r * in_dim + c - skip0] += round_st<WT>(v);
+                g[r * ldh + c] =
+                    static_cast<WT>(mask_bit(mk_next, words, r, c) ? round_st<WT>(v) : 0.f);
+              }
+            }
+          }
+        }
+    } else {
+      float acc[kRows][kCols];
+      fma_matmul(reinterpret_cast<const float*>(g), D, D,
+                 last ? w.w0t : w.wmt + (size_t)j * D * D, N, acc);
+      const int tx = threadIdx.x % kColThreads, ty = threadIdx.x / kColThreads;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int jj = 0; jj < kCols; ++jj) {
+          const int c = tx + kColThreads * jj, r = ty * kRows + i;
+          if (c >= N) continue;
+          const float v = acc[i][jj];
+          if (last) {
+            gx[r * in_dim + c] += v;
+          } else {
+            if (skip_here && c >= skip0) gx[r * in_dim + c - skip0] += v;
+            g[r * ldh + c] = mask_bit(mk_next, words, r, c) ? v : 0.f;
+          }
+        }
     }
-  __syncthreads();
-}
-
-// Shared-memory floats the chain needs for one chunk (h, x, gx, y), and the
-// mask words of one chunk.
-__host__ __device__ inline size_t chain_smem_floats(int D, int in_dim) {
-  return (size_t)kChunk * D + 2 * (size_t)kChunk * in_dim + kChunk;
-}
-__host__ __device__ inline size_t chain_mask_words(int D, int n_mid) {
-  return (size_t)(n_mid + 1) * kChunk * (D / 32);
+    __syncthreads();
+  }
 }
 
 }  // namespace horti

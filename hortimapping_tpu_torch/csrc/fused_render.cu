@@ -25,7 +25,11 @@
 //   * the render math runs one thread per ray, along the ray;
 //   * two gates skip work as the TPU kernel does: a frozen LM lane
 //     (active = 0) writes zeros and returns, and a tile without any band
-//     sample skips the backward entirely.
+//     sample skips the backward entirely;
+//   * the backward runs on the tile's band rows only (a sample whose
+//     Jacobian weights are not both zero), gathered in order into 32-row
+//     chunks with their sign words and tanh outputs, so its cost follows
+//     the band (~1/6 of the samples at the bench shape), not the tile.
 // The frame-level `min_valid_sample` gate needs all tiles of a frame and
 // stays in the PyTorch epilogue (ops/render.py).
 #include "decoder_chain.cuh"
@@ -46,10 +50,10 @@ struct RenderArgs {
   float occ_cutoff, sigma, occlusion_th, min_grad_th;
 };
 
-// Shared-memory floats of one block besides the chain's and the masks.
-__host__ __device__ inline size_t render_smem_floats(int C, int J, int tr, int n_chunks) {
+// Shared-memory 4-byte words of one block besides the chain's and the masks.
+__host__ __device__ inline size_t render_smem_words(int C, int J, int tr, int n_chunks) {
   const size_t rows_cap = (size_t)n_chunks * kChunk;
-  return (size_t)C + rows_cap * 6 + (size_t)tr * 4 + 2 * (size_t)tr * J;
+  return (size_t)C + rows_cap * 7 + kChunk + 1 + (size_t)tr * 4 + 2 * (size_t)tr * J;
 }
 
 __device__ __forceinline__ float occupancy(float s, const RenderArgs& a) {
@@ -76,7 +80,7 @@ __device__ __forceinline__ float jac_entry(int d, const float* g, const float* p
 
 template <typename WT>
 __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, DecoderWeights<WT> w) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int D = w.D, in_dim = w.in_dim, M = a.M, C = a.C, J = a.J, tr = a.tr;
   const int b = blockIdx.z, f = blockIdx.y;
   const int r0 = blockIdx.x * tr;
@@ -94,11 +98,8 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
   }
 
   const int rows_cap = a.n_chunks * kChunk;
-  float* h = smem;                                  // [kChunk][D]
-  float* x = h + (size_t)kChunk * D;                // [kChunk][in_dim]
-  float* gx = x + (size_t)kChunk * in_dim;          // [kChunk][in_dim]
-  float* y = gx + (size_t)kChunk * in_dim;          // [kChunk]
-  float* lat = y + kChunk;                          // [C]
+  ChainBuf buf = chain_carve<WT>(smem, D, in_dim);
+  float* lat = reinterpret_cast<float*>(smem + chain_buf_bytes<WT>(D, in_dim));  // [C]
   float* P = lat + C;                               // [rows_cap][3]
   float* sdf = P + (size_t)rows_cap * 3;            // [rows_cap]
   float* wd = sdf + rows_cap;                       // [rows_cap] depth weight per sample
@@ -106,8 +107,12 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
   float* rayv = wmk + rows_cap;                     // [tr][4]
   float* Jd = rayv + (size_t)tr * 4;                // [tr][J]
   float* Jm = Jd + (size_t)tr * J;                  // [tr][J]
-  uint32_t* masks = reinterpret_cast<uint32_t*>(Jm + (size_t)tr * J);
+  float* yb = Jm + (size_t)tr * J;                  // [kChunk] tanh outputs of a band chunk
+  int* band_rows = reinterpret_cast<int*>(yb + kChunk);  // [rows_cap] band rows, in order
+  int* n_band = band_rows + rows_cap;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(n_band + 1);  // [n_chunks][chain masks]
   const size_t cmw = chain_mask_words(D, w.n_mid);
+  uint32_t* band_masks = masks + a.n_chunks * cmw;  // [chain masks] of a band chunk
 
   const int rows = nr * M;
   const int nc = (rows + kChunk - 1) / kChunk;
@@ -118,13 +123,13 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
 
   // ---- decoder forward over the tile, chunk by chunk ----
   for (int c = 0; c < nc; ++c) {
-    for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) {
-      const int row = c * kChunk + e / in_dim, i = e % in_dim;
-      x[e] = round_st<WT>(i < C ? lat[i] : P[row * 3 + i - C]);
+    for (int e = threadIdx.x; e < kChunk * buf.xcols; e += kThreads) {
+      const int r = e / buf.xcols, i = e % buf.xcols, row = c * kChunk + r;
+      chain_store_x<WT>(buf, r, i, i < C ? lat[i] : i < in_dim ? P[row * 3 + i - C] : 0.f);
     }
     __syncthreads();
-    chain_forward<WT>(w, x, h, masks + c * cmw, y);
-    for (int r = threadIdx.x; r < kChunk; r += kThreads) sdf[c * kChunk + r] = y[r];
+    chain_forward<WT>(w, buf, masks + c * cmw);
+    for (int r = threadIdx.x; r < kChunk; r += kThreads) sdf[c * kChunk + r] = buf.y[r];
     __syncthreads();
   }
 
@@ -183,22 +188,51 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
   }
   const int band = __syncthreads_or(any_band);
 
-  // ---- backward only where a band sample survived ----
+  // ---- backward only where a band sample survived, and only on its rows ----
   if (band) {
     for (int e = threadIdx.x; e < tr * J; e += kThreads) {
       Jd[e] = 0.f;
       Jm[e] = 0.f;
     }
+    if (threadIdx.x < 32) {  // warp 0 lists the band rows (non-zero weight), in order
+      const int lane = threadIdx.x;
+      int nb = 0;
+      for (int base = 0; base < rows; base += 32) {
+        const int row = base + lane;
+        const bool keep = row < rows && (wd[row] != 0.f || wmk[row] != 0.f);
+        const unsigned bits = __ballot_sync(0xffffffffu, keep);
+        if (keep) band_rows[nb + __popc(bits & ((1u << lane) - 1u))] = row;
+        nb += __popc(bits);
+      }
+      if (lane == 0) *n_band = nb;
+    }
     __syncthreads();
-    for (int c = 0; c < nc; ++c) {
-      chain_input_grad<WT>(w, masks + c * cmw, sdf + c * kChunk, h, gx);
-      const int lo = c * kChunk, hi = min(rows, lo + kChunk);
+    const int nb = *n_band, words = D / 32;
+    const int layer_words = (int)mask_layer_words(D);
+    for (int c0 = 0; c0 < nb; c0 += kChunk) {
+      const int n = min(kChunk, nb - c0);
+      // gather the chunk's sign words and tanh outputs; rows past n stay zero
+      for (int e = threadIdx.x; e < (int)cmw; e += kThreads) {
+        const int l = e / layer_words, r = (e % layer_words) / words, q = e % words;
+        uint32_t v = 0u;
+        if (r < n) {
+          const int row = band_rows[c0 + r];
+          v = masks[(row / kChunk) * cmw + l * layer_words + (row % kChunk) * words + q];
+        }
+        band_masks[e] = v;
+      }
+      for (int r = threadIdx.x; r < kChunk; r += kThreads)
+        yb[r] = r < n ? sdf[band_rows[c0 + r]] : 0.f;
+      __syncthreads();
+      chain_input_grad<WT>(w, band_masks, yb, buf);
+      const float* gx = buf.gx;
       for (int e = threadIdx.x; e < nr * J; e += kThreads) {
         const int t = e / J, d = e % J;
-        const int m0 = max(lo, t * M), m1 = min(hi, t * M + M);
         float sd = 0.f, sm = 0.f;
-        for (int row = m0; row < m1; ++row) {
-          const float v = jac_entry(d, gx + (row - lo) * in_dim, P + row * 3, C, a.pose_dim);
+        for (int r = 0; r < n; ++r) {
+          const int row = band_rows[c0 + r];
+          if (row / M != t) continue;
+          const float v = jac_entry(d, gx + r * in_dim, P + row * 3, C, a.pose_dim);
           sd = fmaf(v, wd[row], sd);
           sm = fmaf(v, wmk[row], sm);
         }
@@ -233,11 +267,13 @@ static int launch(const RenderArgs& a, const DecoderWeights<WT>& w, int B, size_
 }
 
 // Dynamic shared memory of one block, in bytes (the wrapper sizes TR by it).
-extern "C" long horti_fused_render_smem(int D, int n_mid, int in_dim, int C, int J, int tr, int M) {
+extern "C" long horti_fused_render_smem(int D, int n_mid, int in_dim, int C, int J, int tr, int M,
+                                        int bf16) {
   const int n_chunks = (tr * M + kChunk - 1) / kChunk;
-  return (long)((chain_smem_floats(D, in_dim) + render_smem_floats(C, J, tr, n_chunks)) *
-                    sizeof(float) +
-                (size_t)n_chunks * chain_mask_words(D, n_mid) * sizeof(uint32_t));
+  const size_t chain = bf16 ? chain_buf_bytes<__nv_bfloat16>(D, in_dim)
+                            : chain_buf_bytes<float>(D, in_dim);
+  return (long)(chain + render_smem_words(C, J, tr, n_chunks) * 4 +
+                (size_t)(n_chunks + 1) * chain_mask_words(D, n_mid) * sizeof(uint32_t));
 }
 
 extern "C" int horti_fused_render(const void* pts, const void* rinfo, const void* depths,
@@ -245,9 +281,10 @@ extern "C" int horti_fused_render(const void* pts, const void* rinfo, const void
                                   int F, int R, int M, int C, int tr, int pose_dim, int scale_on,
                                   int log_occ_on, int occlusion_on, float occ_cutoff, float sigma,
                                   float occlusion_th, float min_grad_th, int D, int n_mid, int li,
-                                  int bf16, const void* w0, const void* w0t, const void* wm,
-                                  const void* wmt, const void* wl, const void* b0, const void* bm,
-                                  float bl, void* jd, void* jm, void* res, void* stream) {
+                                  int bf16, const void* w0, const void* w0t, const void* w0tk,
+                                  const void* wm, const void* wmt, const void* wl, const void* b0,
+                                  const void* bm, float bl, void* jd, void* jm, void* res,
+                                  void* stream) {
   if (D % 128 != 0 || D > kMaxWidth || C + 3 > D || tr < 1 || M < 2 || F > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || F == 0 || R == 0) return (int)cudaSuccess;
@@ -276,16 +313,16 @@ extern "C" int horti_fused_render(const void* pts, const void* rinfo, const void
   a.sigma = sigma;
   a.occlusion_th = occlusion_th;
   a.min_grad_th = min_grad_th;
-  const size_t smem = (size_t)horti_fused_render_smem(D, n_mid, C + 3, C, a.J, tr, M);
+  const size_t smem = (size_t)horti_fused_render_smem(D, n_mid, C + 3, C, a.J, tr, M, bf16);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
-    DecoderWeights<T> w{(const T*)w0, (const T*)w0t, (const T*)wm, (const T*)wmt, (const T*)wl,
-                        (const float*)b0, (const float*)bm, bl, D, n_mid, li, C + 3};
+    DecoderWeights<T> w{(const T*)w0, (const T*)w0t, (const T*)w0tk, (const T*)wm, (const T*)wmt,
+                        (const T*)wl, (const float*)b0, (const float*)bm, bl, D, n_mid, li, C + 3};
     return launch<T>(a, w, B, smem, s);
   }
-  DecoderWeights<float> w{(const float*)w0, (const float*)w0t, (const float*)wm, (const float*)wmt,
-                          (const float*)wl, (const float*)b0, (const float*)bm, bl, D, n_mid,
-                          li, C + 3};
+  DecoderWeights<float> w{(const float*)w0, (const float*)w0t, (const float*)w0tk,
+                          (const float*)wm, (const float*)wmt, (const float*)wl, (const float*)b0,
+                          (const float*)bm, bl, D, n_mid, li, C + 3};
   return launch<float>(a, w, B, smem, s);
 }

@@ -22,6 +22,9 @@ from hortimapping_tpu_torch.ops import cuda_build
 MAX_WIDTH = 512      # widest hidden layer the kernels take (decoder_chain.cuh kMaxWidth)
 PLAIN_ROWS = 1 << 16  # rows per pass of the plain chain (bounds its activations)
 
+# weight tensors of a PackedDecoder, in the order the C entries take them
+WEIGHT_NAMES = ("w0", "w0t", "w0tk", "wm", "wmt", "wl", "b0", "bm")
+
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
@@ -47,6 +50,7 @@ class PackedDecoder(NamedTuple):
 
     w0: torch.Tensor    # [in_dim, D]
     w0t: torch.Tensor   # [D, in_dim]
+    w0tk: torch.Tensor  # [D, in_dim rounded up to 16], zero-padded (tensor-core forward)
     wm: torch.Tensor    # [n_mid, D, D] ([in, out])
     wmt: torch.Tensor   # [n_mid, D, D] ([out, in])
     wl: torch.Tensor    # [D]
@@ -61,6 +65,10 @@ class PackedDecoder(NamedTuple):
     @property
     def bf16(self) -> bool:
         return self.w0.dtype == torch.bfloat16
+
+    def weight_ptrs(self) -> Tuple[int, ...]:
+        """Device pointers of the weight tensors, in the C entries' order."""
+        return tuple(getattr(self, n).data_ptr() for n in WEIGHT_NAMES)
 
 
 def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.float32) -> PackedDecoder:
@@ -87,9 +95,12 @@ def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.fl
     bm = (torch.stack([pad_b(params[f"lin{l}"]["b"]) for l in mids]) if len(mids)
           else torch.zeros(0, D, dtype=f32, device=dev))
     head = params[f"lin{n_lin - 1}"]
+    w0tk = torch.zeros(D, -(-in_dim // 16) * 16, dtype=dtype, device=dev)
+    w0tk[:, :in_dim] = w0.t()
     return PackedDecoder(
         w0=w0.contiguous(),
         w0t=w0.t().contiguous(),
+        w0tk=w0tk,
         wm=wm.contiguous(),
         wmt=wm.transpose(1, 2).contiguous(),
         wl=head["w"][:, 0].to(dtype).contiguous(),
@@ -153,7 +164,7 @@ def chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch
 
 
 def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
-    for name in ("w0", "w0t", "wm", "wmt", "wl", "b0", "bm"):
+    for name in WEIGHT_NAMES:
         t = getattr(pk, name)
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"packed weight {name} must be contiguous on {x.device}")
@@ -172,7 +183,7 @@ def _lib() -> ctypes.CDLL:
         lib.horti_mlp_fwd_grad.restype = i
         lib.horti_mlp_fwd_grad.argtypes = [
             p, i, i, i, i, i, i,          # x, n_rows, in_dim, D, n_mid, li, bf16
-            p, p, p, p, p, p, p,          # w0, w0t, wm, wmt, wl, b0, bm
+            p, p, p, p, p, p, p, p,       # w0, w0t, w0tk, wm, wmt, wl, b0, bm
             ctypes.c_float, p, p, p,      # bl, sdf, grad, stream
         ]
         _argtypes_set = True
@@ -187,9 +198,7 @@ def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, to
     grad = torch.empty(n, pk.in_dim, dtype=torch.float32, device=x.device)
     rc = _lib().horti_mlp_fwd_grad(
         x.data_ptr(), n, pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        pk.w0.data_ptr(), pk.w0t.data_ptr(), pk.wm.data_ptr(), pk.wmt.data_ptr(),
-        pk.wl.data_ptr(), pk.b0.data_ptr(), pk.bm.data_ptr(), pk.bl,
-        sdf.data_ptr(), grad.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        *pk.weight_ptrs(), pk.bl, sdf.data_ptr(), grad.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_build.check(rc, "horti_mlp_fwd_grad")
     launches += 1

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from hortimapping_tpu_torch.ops import cuda_build
-from hortimapping_tpu_torch.ops.mlp_kernels import PackedDecoder, chain_plain
+from hortimapping_tpu_torch.ops.mlp_kernels import WEIGHT_NAMES, PackedDecoder, chain_plain
 from hortimapping_tpu_torch.ops.sdf import logistic_sigma
 
 TILE_ROWS = 128             # samples per block: TR = TILE_ROWS // M rays
@@ -146,11 +146,11 @@ def _lib() -> ctypes.CDLL:
             i, i, i, i,                        # pose_dim, scale_on, log_occ_on, occlusion_on
             fl, fl, fl, fl,                    # occ_cutoff, sigma, occlusion_th, min_grad_th
             i, i, i, i,                        # D, n_mid, li, bf16
-            p, p, p, p, p, p, p, fl,           # w0, w0t, wm, wmt, wl, b0, bm, bl
+            p, p, p, p, p, p, p, p, fl,        # w0, w0t, w0tk, wm, wmt, wl, b0, bm, bl
             p, p, p, p,                        # jd, jm, res, stream
         ]
         lib.horti_fused_render_smem.restype = ctypes.c_long
-        lib.horti_fused_render_smem.argtypes = [i] * 7
+        lib.horti_fused_render_smem.argtypes = [i] * 8
         _argtypes_set = True
     return lib
 
@@ -161,7 +161,8 @@ def ray_tile(pk: PackedDecoder, C: int, pose_dim: int, M: int) -> int:
     lib = _lib()
     tr = max(1, TILE_ROWS // M)
     while True:
-        smem = lib.horti_fused_render_smem(pk.D, pk.n_mid, pk.in_dim, C, pose_dim + C, tr, M)
+        smem = lib.horti_fused_render_smem(pk.D, pk.n_mid, pk.in_dim, C, pose_dim + C, tr, M,
+                                           int(pk.bf16))
         if smem <= MAX_SMEM:
             return tr
         if tr == 1:
@@ -180,7 +181,7 @@ def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx
     for name, t in (("pts", pts), ("latent", latent), ("depths", depths)):
         if t.dtype != f32 or t.device != dev:
             raise ValueError(f"{name} must be float32 on {dev}")
-    for name in ("w0", "w0t", "wm", "wmt", "wl", "b0", "bm"):
+    for name in WEIGHT_NAMES:
         if getattr(pk, name).device != dev:
             raise ValueError(f"packed weight {name} must be on {dev}")
     if pk.in_dim != C + 3 or M < 2:
@@ -206,8 +207,7 @@ def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx
         B, F, R, M, C, tr, pose_dim, int(scale_on), int(log_occ_on), int(occlusion_on),
         occ_cutoff, logistic_sigma(occ_cutoff), occlusion_th, min_grad_th,
         pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        pk.w0.data_ptr(), pk.w0t.data_ptr(), pk.wm.data_ptr(), pk.wmt.data_ptr(),
-        pk.wl.data_ptr(), pk.b0.data_ptr(), pk.bm.data_ptr(), pk.bl,
+        *pk.weight_ptrs(), pk.bl,
         jd.data_ptr(), jm.data_ptr(), res.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -43,13 +43,6 @@ def _close(got, want, rtol_of_max, what=""):
     np.testing.assert_allclose(got, want, atol=rtol_of_max * scale, rtol=0, err_msg=what)
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel)")
-    return torch.device("cuda")
-
-
 # ---------------------------------------------------------------- lie / sdf / robust
 
 def _tangents(seed, n=64):
@@ -165,20 +158,6 @@ def test_mlp_plain_bf16_close_to_pallas_bf16():
     _close(got_s.numpy(), want_s, 4e-3, "sdf")
     _close(got_g.numpy(), want_g, 4e-3, "grad")
     assert np.abs(got_g.numpy() - f32_g.numpy()).max() > 10 * np.abs(got_g.numpy() - np.asarray(want_g)).max()
-
-
-@pytest.mark.cuda
-def test_mlp_kernel_matches_plain_on_card(cuda):
-    tspec = tdec.DecoderSpec(**SKIP)
-    params = params_from_jax(random_decoder_np(tspec, 9), cuda)
-    x = (torch.randn(1000, tspec.in_dim, generator=torch.Generator().manual_seed(0)) * 0.3).to(cuda)
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-3)):
-        pk = mlp_kernels.pack_params(params, tspec, dtype)
-        s1, g1 = mlp_kernels.mlp_sdf_and_input_grad(pk, x)
-        s2, g2 = mlp_kernels.mlp_sdf_and_input_grad_plain(pk, x)
-        torch.cuda.synchronize()
-        _close(s1.cpu().numpy(), s2.cpu().numpy(), tol)
-        _close(g1.cpu().numpy(), g2.cpu().numpy(), tol)
 
 
 def test_supported_specs():

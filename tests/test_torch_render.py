@@ -40,13 +40,6 @@ def world():
     return (jax.tree_util.tree_map(jnp.asarray, params_np), params_from_jax(params_np, "cpu"))
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel)")
-    return torch.device("cuda")
-
-
 def _scene(seed, R_fg=24, R_bg=24, M=24):
     rng = np.random.default_rng(seed)
     R = R_fg + R_bg
@@ -170,26 +163,3 @@ def test_fused_route_epilogue_matches_dense(world):
     for name in ("res_d", "res_m", "jac_d", "jac_m"):
         _close(getattr(fused, name).numpy(), getattr(dense, name).numpy(), name)
 
-
-@pytest.mark.cuda
-def test_render_kernel_matches_plain_on_card(world, cuda):
-    _, tp = world
-    tp = {k: {kk: vv.to(cuda) for kk, vv in v.items()} for k, v in tp.items()}
-    rng = np.random.default_rng(7)
-    B, F, R, M = 2, 3, 37, 22
-    rays = np.concatenate([rng.normal(size=(B, F, R, 2)) * 0.1, np.ones((B, F, R, 1))], -1)
-    depths = np.broadcast_to(np.linspace(0.2, 0.42, M), (B, F, M))
-    T_oc = np.linalg.inv(np.array([[1, 0, 0, 0.01], [0, 1, 0, -0.02], [0, 0, 1, 0.3], [0, 0, 0, 1]]))
-    pts = (rays[..., None, :] * depths[:, :, None, :, None]) @ T_oc[:3, :3].T + T_oc[:3, 3]
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32).to(cuda)
-    args = (t(rng.normal(size=(B, 8)) * 0.05), t(pts), t(0.3 + rng.normal(size=(B, F, R)) * 0.03),
-            torch.arange(R, device=cuda) < 20, torch.ones(B, F, R, dtype=torch.bool, device=cuda),
-            t(depths), t(np.full((B, F), 0.12)), torch.tensor([True, False], device=cuda))
-    kw = dict(pose_dim=7, scale_on=True, log_occ_on=True, occ_cutoff=0.15, occlusion_on=True,
-              occlusion_th=0.03, min_grad_th=1e-6)
-    pk = mlp_kernels.pack_params(tp, TSpec(**FIELDS))
-    got = render_kernel.fused_render(pk, *args, **kw)
-    want = render_kernel.fused_render_plain(pk, *args, **kw)
-    torch.cuda.synchronize()
-    for g, w, name in zip(got, want, ("jd", "jm", "res")):
-        _close(g.cpu().numpy(), w.cpu().numpy(), name)
