@@ -245,6 +245,17 @@ def main() -> int:
           f"max|d grad| {err_g:.3g} (of {g_scale:.3g}) | kernel {ms_k:.3f} ms, plain "
           f"{ms_p:.3f} ms, bound {b1_bound:.3f} ms (operations, f32 CUDA-core peak) "
           f"| no single PyTorch call", flush=True)
+    # the same chain in bf16 on the tensor cores (the render kernel's mode):
+    # its FLOP rate, and the rate at which its 32-row blocks read the
+    # weights from L2 (each block reads them once forward, once backward)
+    pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    s16, g16 = mlp_kernels.mlp_sdf_and_input_grad(pk16, x)
+    assert bool(torch.isfinite(s16).all()) and bool(torch.isfinite(g16).all())
+    ms_16 = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad(pk16, x), 20)
+    l2_bytes = 2 * -(-n_rows // 32) * weight_bytes(pk16)
+    print(f"B1 in bf16 (tensor cores), same rows: {ms_16:.3f} ms, "
+          f"{flops / ms_16 / 1e9:.1f} TFLOP/s, weights read from L2 at "
+          f"{l2_bytes / ms_16 / 1e9:.2f} TB/s", flush=True)
     records.append(dict(
         name="mlp_fwd_grad", route="cuda", source="hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
         replaces="hortimapping_tpu/ops/pallas_mlp.py:198", launches=0,
@@ -270,7 +281,6 @@ def main() -> int:
                occ_cutoff=cfg.occ_cutoff_m, occlusion_on=cfg.occlusion_on, occlusion_th=0.03,
                min_grad_th=1e-6)
     rargs = (lat_r, pts, f_obs.depth_obs, is_fg, ray_valid, depths, bbx, lane_active)
-    pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
     stats = {}
     want = render_kernel.fused_render_plain(pk16, *rargs, stats=stats, **rkw)
     got = render_kernel.fused_render(pk16, *rargs, **rkw)

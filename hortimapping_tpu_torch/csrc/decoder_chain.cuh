@@ -7,9 +7,10 @@
 // render kernel (fused_render.cu) can never drift apart.
 //
 // Layout on Hopper (not the TPU's): a block of 256 threads (8 warps) pushes
-// a chunk of 32 rows through the chain; the activations of the chunk live in
-// shared memory and never reach device memory. Weights (3.7 MB in bf16,
-// 7.4 MB in f32 for 8x512) stay in L2 and stream through L1 layer by layer.
+// a chunk of 32 rows (64 in the render kernel's bf16 forward) through the
+// chain; the activations of the chunk live in shared memory and never reach
+// device memory. Weights (3.7 MB in bf16, 7.4 MB in f32 for 8x512) stay in
+// L2 and stream to the SMs layer by layer.
 // The latent_in skip writes x into the last C+3 columns of layer li's input
 // (layer li-1's padded output columns are zero); the backward adds those
 // columns of g into grad_x. The backward keeps one bit per activation: the
@@ -20,17 +21,17 @@
 //     [32][D]; each thread owns 8 rows x 8 columns (columns tx + 64 j: a warp
 //     reads 32 consecutive weights, writes 32 consecutive activations).
 //   * __nv_bfloat16: tensor cores, mma.sync m16n8k16 with f32 accumulation.
-//     Activations bf16 [32][D + 8] (the pad spreads fragment loads over the
-//     banks); each warp owns both 16-row tiles of n-tiles warp + 8 t and
+//     Activations bf16 [rows][D + 8] (the pad spreads fragment loads over
+//     the banks); each warp owns every 16-row tile of n-tiles warp + 8 t and
 //     streams its B fragments from L2 through its own cp.async ring. Every
 //     matmul operand is rounded to bf16 first, as the JAX package's
 //     `.astype(cdt)` before each dot; bf16 x bf16 products are exact in f32.
 //
-// At 32 rows a chunk every weight is fetched from L2 once per 32 rows: 32
-// FLOP a byte, so the bf16 chain runs near the L2's rate (~93 TFLOP/s at
-// 8x512 on an H100, weights read at ~2.6 TB/s, see PERF.md); more rows per
-// weight fetch (wider tiles, clusters sharing a TMA multicast, wgmma) is the
-// next step.
+// A chunk fetches every weight from L2 once: 32 rows a chunk make 32 FLOP a
+// weight byte, and the bf16 chain then runs near the L2's rate (~79 TFLOP/s
+// at 8x512 on an H100, weights read at ~2.5 TB/s, see PERF.md). The render
+// kernel's forward therefore takes 64-row chunks; more rows per fetch
+// (clusters sharing a TMA multicast, wgmma) is the next step.
 #pragma once
 
 #include <cstdint>
@@ -44,14 +45,14 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;             // rows per pass through the chain
+constexpr int kChunk = 32;             // rows per pass through the chain (default)
 constexpr int kColThreads = 64;        // f32 path: 4 row groups x 64 column threads
 constexpr int kCols = 8;               // f32 path: columns per thread, tx + 64 j
 constexpr int kRows = 8;               // f32 path: rows per thread, 8 ty .. 8 ty + 7
 constexpr int kMaxWidth = kColThreads * kCols;  // 512
 constexpr int kMaxNT = kMaxWidth / 8 / kWarps;  // bf16 path: n-tiles per warp
 constexpr int kPadBf16 = 8;            // bf16 row pad (elements)
-constexpr int kStages = 4;             // bf16 path: k-steps of weights in flight per warp
+constexpr int kStages = 3;             // bf16 path: k-steps of weights in the ring per warp
 constexpr int kStageBytes = kMaxNT * 8 * 32;  // one warp's B fragments of one k-step
 
 template <typename WT>
@@ -71,9 +72,9 @@ struct DecoderWeights {
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
-// Shared-memory buffers of one chunk: h activations, x input (rounded to
-// WT, zero past in_dim), gx input gradient f32 [kChunk][in_dim], y tanh out,
-// and (bf16 path) each warp's ring of weight fragments in flight.
+// Shared-memory buffers of one chunk of ROWS rows: h activations, x input
+// (rounded to WT, zero past in_dim), gx input gradient f32 [ROWS][in_dim],
+// y tanh out, and (bf16 path) each warp's ring of weight fragments.
 struct ChainBuf {
   unsigned char* ring;
   void* h;
@@ -101,27 +102,27 @@ __host__ __device__ inline size_t ring_bytes() {
   return std::is_same<WT, bf16>::value ? (size_t)kWarps * kStages * kStageBytes : 0;
 }
 
-template <typename WT>
+template <typename WT, int ROWS = kChunk>
 __host__ __device__ inline size_t chain_buf_bytes(int D, int in_dim) {
   int ldh, ldx, xcols;
   chain_dims<WT>(D, in_dim, ldh, ldx, xcols);
-  return ring_bytes<WT>() + align16((size_t)kChunk * ldh * sizeof(WT)) +
-         align16((size_t)kChunk * ldx * sizeof(WT)) +
-         align16((size_t)kChunk * in_dim * sizeof(float)) + align16(kChunk * sizeof(float));
+  return ring_bytes<WT>() + align16((size_t)ROWS * ldh * sizeof(WT)) +
+         align16((size_t)ROWS * ldx * sizeof(WT)) +
+         align16((size_t)ROWS * in_dim * sizeof(float)) + align16(ROWS * sizeof(float));
 }
 
-template <typename WT>
+template <typename WT, int ROWS = kChunk>
 __device__ inline ChainBuf chain_carve(unsigned char* base, int D, int in_dim) {
   ChainBuf b;
   chain_dims<WT>(D, in_dim, b.ldh, b.ldx, b.xcols);
   b.ring = base;
   base += ring_bytes<WT>();
   b.h = base;
-  base += align16((size_t)kChunk * b.ldh * sizeof(WT));
+  base += align16((size_t)ROWS * b.ldh * sizeof(WT));
   b.x = base;
-  base += align16((size_t)kChunk * b.ldx * sizeof(WT));
+  base += align16((size_t)ROWS * b.ldx * sizeof(WT));
   b.gx = reinterpret_cast<float*>(base);
-  base += align16((size_t)kChunk * in_dim * sizeof(float));
+  base += align16((size_t)ROWS * in_dim * sizeof(float));
   b.y = reinterpret_cast<float*>(base);
   return b;
 }
@@ -151,9 +152,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Word layout of the ReLU sign masks of one chunk: [layer][row][D / 32].
-__host__ __device__ inline size_t mask_layer_words(int D) { return (size_t)kChunk * (D / 32); }
-__host__ __device__ inline size_t chain_mask_words(int D, int n_mid) {
-  return (size_t)(n_mid + 1) * mask_layer_words(D);
+__host__ __device__ inline size_t mask_layer_words(int D, int rows = kChunk) {
+  return (size_t)rows * (D / 32);
+}
+__host__ __device__ inline size_t chain_mask_words(int D, int n_mid, int rows = kChunk) {
+  return (size_t)(n_mid + 1) * mask_layer_words(D, rows);
 }
 
 __device__ __forceinline__ bool mask_bit(const uint32_t* mk, int words, int r, int c) {
@@ -263,7 +266,7 @@ __device__ __forceinline__ void cp_async_wait_stages() {
 }
 
 // acc[mt][t] (16 x 8 tiles, rows 16 mt .., columns 8 (warp + 8 t) ..) =
-// A [32][K] (bf16 smem, row stride lda) @ B, with B given transposed as
+// A [16 MT][K] (bf16 smem, row stride lda) @ B, with B given transposed as
 // Bt [N][K] (bf16 global, row stride ldb, ldb % 8 == 0). K % 16 == 0. Ends
 // with a barrier.
 //
@@ -272,16 +275,18 @@ __device__ __forceinline__ void cp_async_wait_stages() {
 // in flight while one step multiplies, without registers to hold them. A
 // stage holds, per n-tile, 8 rows of 32 bytes (16 k values); rows 4..7 swap
 // their two 16-byte halves so the fragment reads hit 32 distinct banks.
-// Rows past N are zero-filled.
+// Rows past N are zero-filled. Each fragment serves all MT row tiles, so
+// more rows a chunk means fewer weight bytes from L2 per FLOP.
+template <int MT>
 __device__ __forceinline__ void mma_matmul(const bf16* __restrict__ A, int lda, int K,
                                            const bf16* __restrict__ Bt, int ldb, int N,
-                                           unsigned char* ring, float (&acc)[2][kMaxNT][4]) {
+                                           unsigned char* ring, float (&acc)[MT][kMaxNT][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int NT = (N + 7) / 8, steps = K / 16;
   unsigned char* wring = ring + (size_t)warp * kStages * kStageBytes;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int t = 0; t < kMaxNT; ++t)
 #pragma unroll
@@ -308,49 +313,47 @@ __device__ __forceinline__ void mma_matmul(const bf16* __restrict__ A, int lda, 
     cp_async_wait_stages();  // this step's group has landed
     __syncwarp();
     const int k0 = step * 16;
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const bf16* ar = A + (mt * 16 + g) * lda + k0 + tq * 2;
-      a[mt][0] = lds32(ar);
-      a[mt][1] = lds32(ar + 8 * lda);
-      a[mt][2] = lds32(ar + 8);
-      a[mt][3] = lds32(ar + 8 * lda + 8);
-    }
     const unsigned char* st = wring + (step % kStages) * kStageBytes + g * 32 + tq * 4;
     const int h0 = (g >> 2) * 16, h1 = 16 - h0;
+    uint32_t b[kMaxNT][2];
 #pragma unroll
     for (int t = 0; t < kMaxNT; ++t) {
-      if (warp + kWarps * t < NT) {  // warp-uniform
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(st + t * 256 + h0);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(st + t * 256 + h1);
-        mma_16816(acc[0][t], a[0], b0, b1);
-        mma_16816(acc[1][t], a[1], b0, b1);
-      }
+      b[t][0] = *reinterpret_cast<const uint32_t*>(st + t * 256 + h0);
+      b[t][1] = *reinterpret_cast<const uint32_t*>(st + t * 256 + h1);
     }
     __syncwarp();  // every lane has read the stage before it is refilled
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const bf16* ar = A + (mt * 16 + g) * lda + k0 + tq * 2;
+      const uint32_t a[4] = {lds32(ar), lds32(ar + 8 * lda), lds32(ar + 8),
+                             lds32(ar + 8 * lda + 8)};
+#pragma unroll
+      for (int t = 0; t < kMaxNT; ++t)
+        if (warp + kWarps * t < NT) mma_16816(acc[mt][t], a, b[t][0], b[t][1]);  // warp-uniform
+    }
   }
   cp_async_wait_all();
   __syncthreads();
 }
 
-// ReLU sign words of one layer from the stored bf16 activations.
-__device__ __forceinline__ void masks_from_bf16(const bf16* h, int ldh, int D, uint32_t* mk) {
-  const int words = D / 32;
-  for (int e = threadIdx.x; e < kChunk * words; e += kThreads) {
-    const bf16* p = h + (e / words) * ldh + (e % words) * 32;
-    uint32_t bits = 0u;
-#pragma unroll
-    for (int b = 0; b < 32; ++b) bits |= (__bfloat162float(p[b]) > 0.f ? 1u : 0u) << b;
-    mk[e] = bits;
+// ReLU sign words of one layer from the stored bf16 activations: one warp
+// ballot per 32 columns of a row.
+__device__ __forceinline__ void masks_from_bf16(const bf16* h, int ldh, int D, int rows,
+                                                uint32_t* mk) {
+  const int words = D / 32, lane = threadIdx.x & 31;
+  for (int e = threadIdx.x >> 5; e < rows * words; e += kWarps) {  // warp-uniform
+    const bool on = __bfloat162float(h[(e / words) * ldh + (e % words) * 32 + lane]) > 0.f;
+    const unsigned bits = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) mk[e] = bits;
   }
 }
 
 // ------------------------------------------------------------------ chain
 
-// Forward of one chunk: reads buf.x, writes the masks ((n_mid + 1) layers)
-// and buf.y. Every thread of the block calls it.
-template <typename WT>
+// Forward of one chunk of ROWS rows (32, or 64 with bf16): reads buf.x,
+// writes the masks ((n_mid + 1) layers) and buf.y. Every thread of the
+// block calls it.
+template <typename WT, int ROWS = kChunk>
 __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
                               uint32_t* __restrict__ masks) {
   const int lane = threadIdx.x & 31;
@@ -359,17 +362,18 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
   const WT* x = reinterpret_cast<const WT*>(buf.x);
   for (int l = 0; l <= w.n_mid; ++l) {
     const float* bias = l == 0 ? w.b0 : w.bm + (size_t)(l - 1) * D;
-    uint32_t* mk = masks + (size_t)l * mask_layer_words(D);
+    uint32_t* mk = masks + (size_t)l * mask_layer_words(D, ROWS);
     if constexpr (std::is_same<WT, bf16>::value) {
-      float acc[2][kMaxNT][4];
+      constexpr int MT = ROWS / 16;
+      float acc[MT][kMaxNT][4];
       if (l == 0) {
-        mma_matmul(x, buf.ldx, buf.xcols, w.w0tk, buf.xcols, D, buf.ring, acc);
+        mma_matmul<MT>(x, buf.ldx, buf.xcols, w.w0tk, buf.xcols, D, buf.ring, acc);
       } else {
-        mma_matmul(h, ldh, D, w.wmt + (size_t)(l - 1) * D * D, D, D, buf.ring, acc);
+        mma_matmul<MT>(h, ldh, D, w.wmt + (size_t)(l - 1) * D * D, D, D, buf.ring, acc);
       }
       const int g = lane >> 2, tq = lane & 3, warp = threadIdx.x >> 5;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int t = 0; t < kMaxNT; ++t) {
           const int c = (warp + kWarps * t) * 8 + tq * 2;
@@ -384,8 +388,9 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
           }
         }
       __syncthreads();
-      masks_from_bf16(h, ldh, D, mk);
+      masks_from_bf16(h, ldh, D, ROWS, mk);
     } else {
+      static_assert(ROWS == kChunk, "the f32 chain takes 32-row chunks");
       float acc[kRows][kCols];
       if (l == 0) {
         fma_matmul(x, in_dim, in_dim, w.w0, D, acc);
@@ -412,7 +417,7 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
     if (l + 1 == w.li) {
       // latent_in: layer li reads concat(h, x); the last in_dim outputs of
       // layer li-1 are zero-padded, so the concat is a write into them
-      for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) {
+      for (int e = threadIdx.x; e < ROWS * in_dim; e += kThreads) {
         const int r = e / in_dim, i = e % in_dim;
         h[r * ldh + D - in_dim + i] = x[r * buf.ldx + i];
       }
@@ -421,7 +426,7 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
   }
   // head: one warp per row, tanh(h . wl + bl)
   const int warp = threadIdx.x / 32;
-  for (int r = warp; r < kChunk; r += kWarps) {
+  for (int r = warp; r < ROWS; r += kWarps) {
     float s = 0.f;
     for (int c = lane; c < D; c += 32) s = fmaf(to_float(h[r * ldh + c]), to_float(w.wl[c]), s);
     s = warp_sum(s);
@@ -462,7 +467,7 @@ __device__ void chain_input_grad(const DecoderWeights<WT>& w, const uint32_t* __
     const bool skip_here = !last && j + 1 == w.li;
     if constexpr (std::is_same<WT, bf16>::value) {
       float acc[2][kMaxNT][4];
-      mma_matmul(g, ldh, D, last ? w.w0 : w.wm + (size_t)j * D * D, D, N, buf.ring, acc);
+      mma_matmul<2>(g, ldh, D, last ? w.w0 : w.wm + (size_t)j * D * D, D, N, buf.ring, acc);
       const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3, warp = threadIdx.x >> 5;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)

@@ -18,9 +18,10 @@
 //     the JAX vmap over frames and fruits; a tile holds whole rays (TR rays x
 //     M samples, TR = 128 / M), so the transmittance product, the suffix sum
 //     and the per-ray Jacobian sums are block-local loops with no atomics;
-//   * the decoder chain of decoder_chain.cuh runs over the tile in 32-row
-//     chunks; the forward keeps one ReLU sign bit per activation of the
-//     whole tile in shared memory (16 KB per chunk at 8x512), so the
+//   * the decoder chain of decoder_chain.cuh runs over the tile in chunks
+//     of 64 rows (bf16, so each weight fragment from L2 serves 64 rows) or
+//     32 (f32); the forward keeps one ReLU sign bit per activation of the
+//     whole tile in shared memory (16 KB per 32 rows at 8x512), so the
 //     backward needs no second forward;
 //   * the render math runs one thread per ray, along the ray;
 //   * two gates skip work as the TPU kernel does: a frozen LM lane
@@ -78,8 +79,21 @@ __device__ __forceinline__ float jac_entry(int d, const float* g, const float* p
   return g[d - pose_dim];
 }
 
+// Rows a forward chunk: 64 on the tensor cores (each weight fragment then
+// serves 64 rows), 32 for the f32 chain. Band chunks of the backward: 32.
+template <typename WT>
+constexpr int kFwdRows = std::is_same<WT, __nv_bfloat16>::value ? 64 : kChunk;
+
+// 32-row units of a tile of tr rays x M samples, rounded up to whole
+// forward chunks.
+__host__ __device__ inline int render_units(int tr, int M, bool bf16) {
+  const int per = (bf16 ? kFwdRows<__nv_bfloat16> : kFwdRows<float>) / kChunk;
+  return ((tr * M + kChunk - 1) / kChunk + per - 1) / per * per;
+}
+
 template <typename WT>
 __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, DecoderWeights<WT> w) {
+  constexpr int FR = kFwdRows<WT>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = w.D, in_dim = w.in_dim, M = a.M, C = a.C, J = a.J, tr = a.tr;
   const int b = blockIdx.z, f = blockIdx.y;
@@ -98,8 +112,8 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
   }
 
   const int rows_cap = a.n_chunks * kChunk;
-  ChainBuf buf = chain_carve<WT>(smem, D, in_dim);
-  float* lat = reinterpret_cast<float*>(smem + chain_buf_bytes<WT>(D, in_dim));  // [C]
+  ChainBuf buf = chain_carve<WT, FR>(smem, D, in_dim);
+  float* lat = reinterpret_cast<float*>(smem + chain_buf_bytes<WT, FR>(D, in_dim));  // [C]
   float* P = lat + C;                               // [rows_cap][3]
   float* sdf = P + (size_t)rows_cap * 3;            // [rows_cap]
   float* wd = sdf + rows_cap;                       // [rows_cap] depth weight per sample
@@ -110,12 +124,12 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
   float* yb = Jm + (size_t)tr * J;                  // [kChunk] tanh outputs of a band chunk
   int* band_rows = reinterpret_cast<int*>(yb + kChunk);  // [rows_cap] band rows, in order
   int* n_band = band_rows + rows_cap;
-  uint32_t* masks = reinterpret_cast<uint32_t*>(n_band + 1);  // [n_chunks][chain masks]
-  const size_t cmw = chain_mask_words(D, w.n_mid);
-  uint32_t* band_masks = masks + a.n_chunks * cmw;  // [chain masks] of a band chunk
+  uint32_t* masks = reinterpret_cast<uint32_t*>(n_band + 1);  // [rows_cap / FR][chain masks]
+  const size_t cmw = chain_mask_words(D, w.n_mid, FR);
+  uint32_t* band_masks = masks + (rows_cap / FR) * cmw;  // [chain masks] of a 32-row band chunk
 
   const int rows = nr * M;
-  const int nc = (rows + kChunk - 1) / kChunk;
+  const int nc = (rows + FR - 1) / FR;
   for (int e = threadIdx.x; e < C; e += kThreads) lat[e] = a.latent[(long)b * C + e];
   for (int e = threadIdx.x; e < rows_cap * 3; e += kThreads)
     P[e] = e < rows * 3 ? a.pts[ray0 * M * 3 + e] : 0.f;
@@ -123,13 +137,13 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
 
   // ---- decoder forward over the tile, chunk by chunk ----
   for (int c = 0; c < nc; ++c) {
-    for (int e = threadIdx.x; e < kChunk * buf.xcols; e += kThreads) {
-      const int r = e / buf.xcols, i = e % buf.xcols, row = c * kChunk + r;
+    for (int e = threadIdx.x; e < FR * buf.xcols; e += kThreads) {
+      const int r = e / buf.xcols, i = e % buf.xcols, row = c * FR + r;
       chain_store_x<WT>(buf, r, i, i < C ? lat[i] : i < in_dim ? P[row * 3 + i - C] : 0.f);
     }
     __syncthreads();
-    chain_forward<WT>(w, buf, masks + c * cmw);
-    for (int r = threadIdx.x; r < kChunk; r += kThreads) sdf[c * kChunk + r] = buf.y[r];
+    chain_forward<WT, FR>(w, buf, masks + c * cmw);
+    for (int r = threadIdx.x; r < FR; r += kThreads) sdf[c * FR + r] = buf.y[r];
     __syncthreads();
   }
 
@@ -208,16 +222,17 @@ __global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, De
     }
     __syncthreads();
     const int nb = *n_band, words = D / 32;
-    const int layer_words = (int)mask_layer_words(D);
+    const int band_layer = (int)mask_layer_words(D), fwd_layer = (int)mask_layer_words(D, FR);
+    const int band_words = (int)chain_mask_words(D, w.n_mid);
     for (int c0 = 0; c0 < nb; c0 += kChunk) {
       const int n = min(kChunk, nb - c0);
       // gather the chunk's sign words and tanh outputs; rows past n stay zero
-      for (int e = threadIdx.x; e < (int)cmw; e += kThreads) {
-        const int l = e / layer_words, r = (e % layer_words) / words, q = e % words;
+      for (int e = threadIdx.x; e < band_words; e += kThreads) {
+        const int l = e / band_layer, r = (e % band_layer) / words, q = e % words;
         uint32_t v = 0u;
         if (r < n) {
           const int row = band_rows[c0 + r];
-          v = masks[(row / kChunk) * cmw + l * layer_words + (row % kChunk) * words + q];
+          v = masks[(row / FR) * cmw + l * fwd_layer + (row % FR) * words + q];
         }
         band_masks[e] = v;
       }
@@ -269,9 +284,9 @@ static int launch(const RenderArgs& a, const DecoderWeights<WT>& w, int B, size_
 // Dynamic shared memory of one block, in bytes (the wrapper sizes TR by it).
 extern "C" long horti_fused_render_smem(int D, int n_mid, int in_dim, int C, int J, int tr, int M,
                                         int bf16) {
-  const int n_chunks = (tr * M + kChunk - 1) / kChunk;
-  const size_t chain = bf16 ? chain_buf_bytes<__nv_bfloat16>(D, in_dim)
-                            : chain_buf_bytes<float>(D, in_dim);
+  const int n_chunks = render_units(tr, M, bf16);
+  const size_t chain = bf16 ? chain_buf_bytes<__nv_bfloat16, kFwdRows<__nv_bfloat16>>(D, in_dim)
+                            : chain_buf_bytes<float, kFwdRows<float>>(D, in_dim);
   return (long)(chain + render_smem_words(C, J, tr, n_chunks) * 4 +
                 (size_t)(n_chunks + 1) * chain_mask_words(D, n_mid) * sizeof(uint32_t));
 }
@@ -304,7 +319,7 @@ extern "C" int horti_fused_render(const void* pts, const void* rinfo, const void
   a.C = C;
   a.J = pose_dim + C;
   a.tr = tr;
-  a.n_chunks = (tr * M + kChunk - 1) / kChunk;
+  a.n_chunks = render_units(tr, M, bf16);
   a.pose_dim = pose_dim;
   a.scale_on = scale_on;
   a.log_occ_on = log_occ_on;
