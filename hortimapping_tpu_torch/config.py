@@ -85,7 +85,8 @@ class JointOptConfig:
     fine_sample_frac: float = 1.0
     fine_pts_frac: float = 1.0
     # rays per tile of the JAX fused kernel's coarse phase; parsed for schema
-    # parity, the CUDA kernel sizes its own ray tiles
+    # parity and ignored: the CUDA kernel sizes its own ray tiles
+    # (render_kernel.ray_tile)
     coarse_fused_tr: int = 0
     # latent warm start (optim/warmstart.py)
     init_mode: str = "mean"
@@ -112,7 +113,7 @@ class JointOptConfig:
     use_pallas: Optional[bool] = None
     fused_render: Optional[bool] = None
     fused_bf16: bool = True
-    fused_tr: int = 16
+    fused_tr: int = 16  # parsed for schema parity and ignored, as coarse_fused_tr
 
     def pallas_resolved(self, spec) -> bool:
         """Decoder evaluations of the dense render path go through the

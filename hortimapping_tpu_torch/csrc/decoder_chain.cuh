@@ -18,8 +18,9 @@
 //
 // Storage type WT picks the arithmetic:
 //   * float: f32 FMA on the CUDA cores (no TF32 anywhere). Activations f32
-//     [32][D]; each thread owns 8 rows x 8 columns (columns tx + 64 j: a warp
-//     reads 32 consecutive weights, writes 32 consecutive activations).
+//     [32][D]; each thread owns 8 rows x 8 columns, two groups of 4
+//     (columns 4 tx .. 4 tx + 3 and 256 + 4 tx ..), so its weights of one k
+//     are two 16-byte loads.
 //   * __nv_bfloat16: tensor cores, mma.sync m16n8k16 with f32 accumulation.
 //     Activations bf16 [rows][D + 8] (the pad spreads fragment loads over
 //     the banks); each warp owns every 16-row tile of n-tiles warp + 8 t and
@@ -47,7 +48,7 @@ constexpr int kThreads = 256;          // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;             // rows per pass through the chain (default)
 constexpr int kColThreads = 64;        // f32 path: 4 row groups x 64 column threads
-constexpr int kCols = 8;               // f32 path: columns per thread, tx + 64 j
+constexpr int kCols = 8;               // f32 path: columns per thread, f32_col(tx, j)
 constexpr int kRows = 8;               // f32 path: rows per thread, 8 ty .. 8 ty + 7
 constexpr int kMaxWidth = kColThreads * kCols;  // 512
 constexpr int kMaxNT = kMaxWidth / 8 / kWarps;  // bf16 path: n-tiles per warp
@@ -58,7 +59,7 @@ constexpr int kStageBytes = kMaxNT * 8 * 32;  // one warp's B fragments of one k
 template <typename WT>
 struct DecoderWeights {
   const WT* w0;     // [in_dim][D]  layer 0, [in][out]
-  const WT* w0t;    // [D][in_dim]  layer 0 transposed (f32 path backward)
+  const WT* w0t;    // [D][round4(in_dim)] layer 0 transposed, zero-padded (f32 backward)
   const WT* w0tk;   // [D][round16(in_dim)] layer 0 transposed, zero-padded in k (bf16 forward)
   const WT* wm;     // [n_mid][D][D] layers 1..n_mid, [in][out]
   const WT* wmt;    // [n_mid][D][D] the same transposed, [out][in]
@@ -70,6 +71,7 @@ struct DecoderWeights {
 };
 
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
 // Shared-memory buffers of one chunk of ROWS rows: h activations, x input
@@ -165,10 +167,17 @@ __device__ __forceinline__ bool mask_bit(const uint32_t* mk, int words, int r, i
 
 // ------------------------------------------------------------------ f32 path
 
-// acc[i][j] = sum_k in[(8 ty + i) * ld_in + k] * W[k * N + tx + 64 j].
-// Ends with a barrier, so the caller may overwrite `in` with the result.
+// Column of the f32 path's accumulator j (0..7) in thread tx's two groups.
+__device__ __forceinline__ int f32_col(int tx, int j) {
+  return 4 * tx + (kMaxWidth / 2) * (j / 4) + j % 4;
+}
+
+// acc[i][j] = sum_k in[(8 ty + i) * ld_in + k] * W[k * ldw + f32_col(tx, j)]
+// for the groups of 4 columns that start below N (ldw % 4 == 0, W 16-byte
+// aligned, W's columns from N up to round4(N) zero). Ends with a barrier, so
+// the caller may overwrite `in` with the result.
 __device__ __forceinline__ void fma_matmul(const float* __restrict__ in, int ld_in, int K,
-                                           const float* __restrict__ W, int N,
+                                           const float* __restrict__ W, int ldw, int N,
                                            float (&acc)[kRows][kCols]) {
   const int tx = threadIdx.x % kColThreads;
   const int ty = threadIdx.x / kColThreads;
@@ -177,17 +186,21 @@ __device__ __forceinline__ void fma_matmul(const float* __restrict__ in, int ld_
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   const float* a_rows = in + ty * kRows * ld_in;
-  // The weights of the next k-step are loaded while this one multiplies; a
-  // column past N loads column N - 1 and is zeroed, so no load sits in a
-  // branch. Where rows allow it a step is 4 k wide (one 16-byte load of A
-  // per row); the sums run in k order either way.
+  // The weights of the next k-step are loaded while this one multiplies, two
+  // 16-byte loads a k; a group past N loads group 0 and is zeroed, so no load
+  // sits in a branch. Where rows allow it a step is 4 k wide (one 16-byte
+  // load of A per row); the sums run in k order either way.
   auto load_w = [&](float (&dst)[kCols], int k) {
-    const float* wk = W + (size_t)k * N;
+    const float* wk = W + (size_t)k * ldw;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tx + kColThreads * j;
-      const float v = __ldg(wk + min(c, N - 1));
-      dst[j] = c < N ? v : 0.f;
+    for (int g = 0; g < kCols / 4; ++g) {
+      const int c = f32_col(tx, 4 * g);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(wk + (c < N ? c : 0)));
+      const bool ok = c < N;
+      dst[4 * g + 0] = ok ? v.x : 0.f;
+      dst[4 * g + 1] = ok ? v.y : 0.f;
+      dst[4 * g + 2] = ok ? v.z : 0.f;
+      dst[4 * g + 3] = ok ? v.w : 0.f;
     }
   };
   if (K % 4 == 0 && ld_in % 4 == 0) {
@@ -336,13 +349,14 @@ __device__ __forceinline__ void mma_matmul(const bf16* __restrict__ A, int lda, 
   __syncthreads();
 }
 
-// ReLU sign words of one layer from the stored bf16 activations: one warp
+// ReLU sign words of one layer from the stored activations: one warp
 // ballot per 32 columns of a row.
-__device__ __forceinline__ void masks_from_bf16(const bf16* h, int ldh, int D, int rows,
-                                                uint32_t* mk) {
+template <typename WT>
+__device__ __forceinline__ void masks_from_h(const WT* h, int ldh, int D, int rows,
+                                             uint32_t* mk) {
   const int words = D / 32, lane = threadIdx.x & 31;
   for (int e = threadIdx.x >> 5; e < rows * words; e += kWarps) {  // warp-uniform
-    const bool on = __bfloat162float(h[(e / words) * ldh + (e % words) * 32 + lane]) > 0.f;
+    const bool on = to_float(h[(e / words) * ldh + (e % words) * 32 + lane]) > 0.f;
     const unsigned bits = __ballot_sync(0xffffffffu, on);
     if (lane == 0) mk[e] = bits;
   }
@@ -357,7 +371,7 @@ template <typename WT, int ROWS = kChunk>
 __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
                               uint32_t* __restrict__ masks) {
   const int lane = threadIdx.x & 31;
-  const int D = w.D, words = D / 32, in_dim = w.in_dim, ldh = buf.ldh;
+  const int D = w.D, in_dim = w.in_dim, ldh = buf.ldh;
   WT* h = reinterpret_cast<WT*>(buf.h);
   const WT* x = reinterpret_cast<const WT*>(buf.x);
   for (int l = 0; l <= w.n_mid; ++l) {
@@ -387,32 +401,32 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
             }
           }
         }
-      __syncthreads();
-      masks_from_bf16(h, ldh, D, ROWS, mk);
     } else {
       static_assert(ROWS == kChunk, "the f32 chain takes 32-row chunks");
       float acc[kRows][kCols];
       if (l == 0) {
-        fma_matmul(x, in_dim, in_dim, w.w0, D, acc);
+        fma_matmul(x, in_dim, in_dim, w.w0, D, D, acc);
       } else {
-        fma_matmul(h, D, D, w.wm + (size_t)(l - 1) * D * D, D, acc);
+        fma_matmul(h, D, D, w.wm + (size_t)(l - 1) * D * D, D, D, acc);
       }
       const int tx = threadIdx.x % kColThreads, ty = threadIdx.x / kColThreads;
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int r = ty * kRows + i;
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int c = tx + kColThreads * j;
-          if (c < D) {  // warp-uniform: D is a multiple of 128
-            const float v = fmaxf(acc[i][j] + bias[c], 0.f);
-            const unsigned bits = __ballot_sync(0xffffffffu, v > 0.f);
-            if (lane == 0) mk[r * words + c / 32] = bits;
-            h[r * D + c] = v;
+        for (int g = 0; g < kCols / 4; ++g) {
+          const int c = f32_col(tx, 4 * g);
+          if (c < D) {  // D is a multiple of 128: whole groups
+            const float4 b = *reinterpret_cast<const float4*>(bias + c);
+            *reinterpret_cast<float4*>(h + r * D + c) = make_float4(
+                fmaxf(acc[i][4 * g] + b.x, 0.f), fmaxf(acc[i][4 * g + 1] + b.y, 0.f),
+                fmaxf(acc[i][4 * g + 2] + b.z, 0.f), fmaxf(acc[i][4 * g + 3] + b.w, 0.f));
           }
         }
       }
     }
+    __syncthreads();
+    masks_from_h<WT>(h, ldh, D, ROWS, mk);
     __syncthreads();
     if (l + 1 == w.li) {
       // latent_in: layer li reads concat(h, x); the last in_dim outputs of
@@ -495,13 +509,13 @@ __device__ void chain_input_grad(const DecoderWeights<WT>& w, const uint32_t* __
     } else {
       float acc[kRows][kCols];
       fma_matmul(reinterpret_cast<const float*>(g), D, D,
-                 last ? w.w0t : w.wmt + (size_t)j * D * D, N, acc);
+                 last ? w.w0t : w.wmt + (size_t)j * D * D, last ? round4(in_dim) : D, N, acc);
       const int tx = threadIdx.x % kColThreads, ty = threadIdx.x / kColThreads;
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int jj = 0; jj < kCols; ++jj) {
-          const int c = tx + kColThreads * jj, r = ty * kRows + i;
+          const int c = f32_col(tx, jj), r = ty * kRows + i;
           if (c >= N) continue;
           const float v = acc[i][jj];
           if (last) {

@@ -10,8 +10,12 @@
 // than once. Design: one block of 256 threads per chunk of 32 rows; the
 // activations of the chunk never leave shared memory and the backward keeps
 // only the ReLU sign bits (16 KB per chunk at 8x512), see decoder_chain.cuh.
-// f32 weights multiply in f32 FMA on the CUDA cores, bf16 weights on the
-// tensor cores (mma.sync); wgmma is later work.
+// f32 weights multiply in f32 FMA on the CUDA cores (two 16-byte weight
+// loads a k per thread), bf16 weights on the tensor cores (mma.sync); wgmma
+// is later work. In f32 the chain is still slower than the plain version's
+// cuBLAS matmuls at the bench shapes (PERF.md): 64-row chunks, which would
+// halve its weight traffic from L2, spilled registers both at 256 threads a
+// block (16 x 8 accumulators a thread) and at 512 (a 128-register cap).
 #include "decoder_chain.cuh"
 
 using namespace horti;

@@ -49,7 +49,7 @@ class PackedDecoder(NamedTuple):
     concat becomes a write into them."""
 
     w0: torch.Tensor    # [in_dim, D]
-    w0t: torch.Tensor   # [D, in_dim]
+    w0t: torch.Tensor   # [D, in_dim rounded up to 4], zero-padded (f32 backward)
     w0tk: torch.Tensor  # [D, in_dim rounded up to 16], zero-padded (tensor-core forward)
     wm: torch.Tensor    # [n_mid, D, D] ([in, out])
     wmt: torch.Tensor   # [n_mid, D, D] ([out, in])
@@ -97,9 +97,11 @@ def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.fl
     head = params[f"lin{n_lin - 1}"]
     w0tk = torch.zeros(D, -(-in_dim // 16) * 16, dtype=dtype, device=dev)
     w0tk[:, :in_dim] = w0.t()
+    w0t = torch.zeros(D, -(-in_dim // 4) * 4, dtype=dtype, device=dev)
+    w0t[:, :in_dim] = w0.t()
     return PackedDecoder(
         w0=w0.contiguous(),
-        w0t=w0.t().contiguous(),
+        w0t=w0t,
         w0tk=w0tk,
         wm=wm.contiguous(),
         wmt=wm.transpose(1, 2).contiguous(),
@@ -151,7 +153,7 @@ def _chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torc
         if j + 1 == li:
             gx = gx + _round(g[:, D - k:], bf16)
     g = _round(g * masks[0], bf16)
-    return y, gx + g @ w(pk.w0t)
+    return y, gx + g @ w(pk.w0t[:, :k])
 
 
 def chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

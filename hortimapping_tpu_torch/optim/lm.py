@@ -332,7 +332,6 @@ def subsample_observations(obs: FruitObservations, cfg: JointOptConfig):
     coarse_cfg = dataclasses.replace(
         sub_cfg,
         max_iter=cfg.coarse_max_iter or cfg.max_iter,
-        fused_tr=cfg.coarse_fused_tr or cfg.fused_tr,
         s_damp=cfg.coarse_s_damp or cfg.s_damp,
     )
     return sub_obs, coarse_cfg

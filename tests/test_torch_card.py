@@ -126,9 +126,10 @@ def test_render_kernel_matches_plain_f32(cuda, name, case):
 
 
 @pytest.mark.cuda
-def test_render_kernel_bf16_within_gate(cuda):
+@pytest.mark.parametrize("M", [10, 22])  # the bench's coarse and fine samples per ray
+def test_render_kernel_bf16_within_gate(cuda, M):
     params, spec = _decoder("synthetic_pepper_32", 0, cuda)
-    args = _render_inputs(spec, cuda, B=3, F=3, R=64, M=22, seed=8)
+    args = _render_inputs(spec, cuda, B=3, F=3, R=64, M=M, seed=8)
     kw = dict(pose_dim=7, scale_on=True, log_occ_on=True, occ_cutoff=0.15, occlusion_on=True,
               occlusion_th=0.03, min_grad_th=1e-6)
     pk = mlp_kernels.pack_params(params, spec, torch.bfloat16)
