@@ -3,33 +3,49 @@
 
 Phases (one line each; any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit, torch/CUDA versions, the build
-     of both kernel libraries (nvcc, in parallel) and of the host library (g++);
-  2. B1, the decoder fwd+input-grad kernel, vs its plain PyTorch version at
-     both SDF-term shapes of the main path (coarse 32 x 600 points, fine
-     32 x 1200, f32), one line each;
-  3. B2, the fused render kernel, vs its plain version at both render shapes
-     of the main path (coarse B=32, F=3, R=120, M=10; fine B=32, F=10,
-     R=240, M=22) in the working bf16, gated as the repo's fused-kernel gate
-     (ROADMAP.md "Rules") plus a per-block check of J^T J, and at each shape
-     a small f32 case under a tight tolerance, one line each;
-  4. the main path: the bench.py workload (32 synthetic peppers, seed 42) at
-     the full width of assets/synthetic_pepper_32 through retrieval warm
-     start, coarse-to-fine LM and meshing at 40^3, timed (whole batch, and
-     split into solve / grid decode / host marching tetrahedra), with
-     Chamfer-L1 against the analytic GT surfaces and the launch counts of
-     both kernels; with --profile FILE, one more batch traced by
-     torch.profiler (its device-time table written to FILE);
-  5. the functional gate: the same solve with the plain versions swapped in
-     must reach the same mean Chamfer-L1 within 0.3 mm;
-  6. one JSON line per kernel record, then the JSON result line.
+     of the four kernel libraries (nvcc, in parallel) and of the host library
+     (g++);
+  2. B3, the decoder forward kernel, vs its plain PyTorch version at both
+     retrieval scoring shapes (bench: bf16, 16 fruits x 256 codes x 128
+     points; greenhouse: f32, 16 fruits x 128 codes x 256 points), with the
+     code each point set retrieves;
+  3. B4, the shared-latent kernel, vs its plain version on the mesher's 40^3
+     grid under the batch's 32 retrieved codes, f32 and bf16, each meshed and
+     held to the surface gate (vertex distance to the f32 zero level set);
+  4. B1, the fwd+input-grad kernel, and B2, the fused render kernel, vs their
+     plain versions at every shape of both paths (bench coarse and fine,
+     greenhouse full resolution), B2 gated as the repo's fused-kernel gate
+     (ROADMAP.md "Rules") plus a small f32 case;
+  5. the bench path: the bench.py workload (32 synthetic peppers, seed 42)
+     at the full width of assets/synthetic_pepper_32 through retrieval warm
+     start, coarse-to-fine LM and 40^3 meshing, timed with its split, mean
+     Chamfer-L1 against the analytic GT surfaces and all four launch counts;
+     then its functional gate: the same with every kernel swapped for its
+     plain version must reach the same mean Chamfer-L1 within 0.3 mm;
+  6. the greenhouse path: configs/cka_pepper_tpu.yaml on the same batch
+     through `warmstart_solve` (f32 retrieval, 50-iteration LM with damped
+     rotation tangents, selective multi-start rescue) and
+     `complete_mesh_batch` at 40^3, timed with its split, the rescue's lanes
+     and all four launch counts;
+  7. the trust-region path: configs/shape_completion_challenge_pepper_tpu.yaml
+     (5 frames x 300 rays x 20 samples, 5-scale retrieval) at B=8: B1, B2,
+     B3 and B4 vs their plain versions at the shapes this path gives them,
+     the timed path with all four launch counts, and its functional gate
+     (every kernel against its plain version, mean Chamfer-L1 within 0.3 mm);
+  8. the greenhouse path's functional gate at B=8: every kernel against its
+     plain version, mean Chamfer-L1 within 0.3 mm;
+  9. one JSON line of kernel records, then the JSON result line.
+With --profile FILE, one bench batch and one greenhouse batch are traced by
+torch.profiler (device-time tables appended to FILE).
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
-(--quick stops after phase 3). The JAX package is never imported.
+(--quick stops after phase 4). The JAX package is never imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -44,7 +60,21 @@ H100_BF16_FLOPS = 989e12       # bf16 dense tensor-core rate
 N_FRUITS = 32
 CUBE_RADIUS = 0.08             # object_radius_max_m of wild_pepper.yaml
 VOXELS = 40                    # int(2 * 0.08 * 1e3 / 4.0 mm), bench.py
+N_TR = 8                       # fruits of the trust-region path
+N_GATE = 8                     # fruits of the greenhouse path's functional gate
+GREENHOUSE_YAML = "cka_pepper_tpu.yaml"
+CHALLENGE_YAML = "shape_completion_challenge_pepper_tpu.yaml"
 CD_GATE_MM = 0.3
+# B3 in bf16 vs its plain version: a summation-order flip moves one
+# activation by one bf16 ulp (2^-8 relative), which reaches the tanh output
+# damped; the median stays near f32 level and 99 % of rows stay within 2 %
+# of the clamping distance (0.1). The ranking gate: where kernel and plain
+# scores pick different codes, the plain scores of the two must tie within
+# 1e-4 (a mean of 128-256 clamped |sdf| values).
+B3_BF16_GATE = dict(med=1e-4, p99=2e-3, score=1e-4)
+# B4 in bf16 vs its plain version: the same chain on the same kind of rows
+# (code | xyz), so the same median and p99 gates as B3
+B4_BF16_GATE = dict(med=B3_BF16_GATE["med"], p99=B3_BF16_GATE["p99"])
 # kernel vs plain gates of the render term (tools/fused_check.py TOL, the
 # repo's fused-kernel gate): bf16 at the bench shape; f32 much tighter, since
 # there kernel and plain differ only in summation order
@@ -99,7 +129,10 @@ def weight_bytes(pk):
     return fwd * el + (pk.D * (pk.n_mid + 1) + 1) * 4
 
 
-def build_batch(spec, cfg, device):
+def build_batch(spec, cfg, device, n=None):
+    """The bench.py batch (synthetic peppers from seed 42) at the
+    observation shapes of `cfg`: (observations, pose inits T_ow0, GT surface
+    points per fruit)."""
     import numpy as np
 
     from hortimapping_tpu_torch.optim.state import stack_observations
@@ -108,7 +141,7 @@ def build_batch(spec, cfg, device):
     cat = SyntheticCategory(spec=spec, base_radius=0.06)
     rng = np.random.default_rng(42)
     obs_list, T_list, gts = [], [], []
-    for b in range(N_FRUITS):
+    for b in range(N_FRUITS if n is None else n):
         code = (rng.normal(size=spec.code_length) * 0.3).astype(np.float32)
         T_wo = np.eye(4, dtype=np.float32)
         T_wo[:3, 3] = rng.normal(size=3) * 0.1
@@ -217,8 +250,9 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
     pts = sample_points(sub_obs.rays, depths, T_oc).contiguous()
     is_fg = torch.arange(sub_cfg.n_rays, device=dev) < sub_cfg.n_fg_pix
     ray_valid = sub_obs.ray_valid & sub_obs.frame_valid[..., None]
-    lane_active = torch.ones(N_FRUITS, dtype=torch.bool, device=dev)
-    lane_active[[5, 17]] = False  # frozen lanes exercise the skip
+    B = latent.shape[0]
+    lane_active = torch.ones(B, dtype=torch.bool, device=dev)
+    lane_active[[5, 17 % B]] = False  # frozen lanes exercise the skip
     rkw = dict(pose_dim=sub_cfg.pose_dim, scale_on=sub_cfg.scale_on,
                log_occ_on=sub_cfg.log_sdf_occ, occ_cutoff=sub_cfg.occ_cutoff_m,
                occlusion_on=sub_cfg.occlusion_on, occlusion_th=0.03, min_grad_th=1e-6)
@@ -246,7 +280,7 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
     plain_ms = cuda_ms(lambda: render_kernel.fused_render_plain(pk16, *rargs, **rkw), 2)
     fwd, bwd = chain_macs(pk16)
     flops = 2.0 * (fwd * stats["active_samples"] + bwd * stats["band_samples"])
-    B, F, R, M, _ = pts.shape
+    _, F, R, M, _ = pts.shape
     J = sub_cfg.pose_dim + latent.shape[1]
     nbytes = (pts.numel() * 4 + B * F * R * (4 + 1) + R + depths.numel() * 4 + bbx.numel() * 4
               + latent.numel() * 4 + B + weight_bytes(pk16) + B * F * R * (2 * J + 4) * 4)
@@ -262,9 +296,162 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def profile_main(run, smi, path: str) -> None:
-    """Trace one main-path batch with torch.profiler: the device-time table
-    goes to `path`, one summary line to stdout."""
+def fwd_bound(pk, n_rows: int, in_bytes: float, out_bytes: float):
+    """(flops, bound ms, what bounds it) of a forward over n_rows rows."""
+    flops = 2.0 * chain_macs(pk)[0] * n_rows
+    peak = H100_BF16_FLOPS if pk.bf16 else H100_F32_FLOPS
+    return (flops, *bound(in_bytes + out_bytes + weight_bytes(pk), flops, peak))
+
+
+def check_fwd(phase, pk, codes, pts, valid, clamp):
+    """B3 vs its plain version on the scoring rows of one retrieval launch:
+    every code of `codes` [N, C] against every point set of `pts` [G, P, 3].
+    f32 is held to max |d sdf| <= 1e-5. bf16 feeds a ranking: the tensor
+    cores sum in another order than the plain version, so an activation now
+    and then rounds one bf16 ulp the other way; it is held by the median and
+    p99 of |d sdf| and by the code each point set retrieves (the argmin of
+    the mean clamped |sdf|, as `_score_codes`), never by the maximum."""
+    import torch
+
+    from hortimapping_tpu_torch.ops import mlp_kernels
+
+    N, C = codes.shape
+    G, P, _ = pts.shape
+    x = torch.cat([codes[None, :, None, :].expand(G, N, P, C),
+                   pts[:, None].expand(G, N, P, 3)], dim=-1).reshape(-1, C + 3).contiguous()
+    got = mlp_kernels.mlp_sdf(pk, x)
+    want = mlp_kernels.mlp_sdf_plain(pk, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    d = (got - want).abs()
+    err = float(d.max())
+    med, p99 = float(d.median()), float(torch.quantile(d, 0.99))
+
+    def scores(sdf):
+        e = torch.clamp(sdf.abs().reshape(G, N, P), max=clamp)
+        return (e * valid[:, None, :]).sum(-1) / valid.sum(-1).clamp(min=1)[:, None]
+
+    s_got, s_want = scores(got), scores(want)
+    k_got, k_want = s_got.argmin(1), s_want.argmin(1)
+    ar = torch.arange(G, device=x.device)
+    score_gap = float((s_want[ar, k_got] - s_want[ar, k_want]).abs().max())
+    n_same = int((k_got == k_want).sum())
+    if pk.bf16:
+        gates = dict(med=B3_BF16_GATE["med"], p99=B3_BF16_GATE["p99"], score=B3_BF16_GATE["score"])
+        assert med <= gates["med"] and p99 <= gates["p99"], (phase, med, p99)
+        assert score_gap <= gates["score"], (phase, n_same, score_gap)
+        gate_s = (f"median {med:.3g} p99 {p99:.3g} max {err:.3g} (gates median {gates['med']}, "
+                  f"p99 {gates['p99']}) | top-1 code equal for {n_same}/{G} point sets, worst plain-"
+                  f"score gap of the two picks {score_gap:.3g} (gate {gates['score']})")
+    else:
+        assert err <= 1e-5 and n_same == G, (phase, err, n_same)
+        gate_s = f"max {err:.3g} (gate 1e-5) | top-1 code equal for {n_same}/{G} point sets"
+    ms = cuda_ms(lambda: mlp_kernels.mlp_sdf(pk, x), 10)
+    plain_ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_plain(pk, x), 3)
+    rows = x.shape[0]
+    flops, bound_ms, bound_by = fwd_bound(pk, rows, rows * pk.in_dim * 4, rows * 4)
+    mode = "bf16" if pk.bf16 else "f32"
+    print(f"B3 mlp_fwd vs plain, {phase} scoring: {G} point sets x {N} codes x {P} points = "
+          f"{rows} rows {mode} | |d sdf| {gate_s} | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+          f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call",
+          flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def surface_distances(pk32, meshes, latents):
+    """Per-vertex distance of the meshes to the decoder's zero level set:
+    |sdf| from the plain f32 decoder over the norm of its xyz gradient (B1,
+    f32), as tests/test_native_meshing.py bounds it. Vertices are in the
+    object frame at cube-radius scale, the decoder's input coordinates."""
+    import torch
+
+    from hortimapping_tpu_torch.ops import mlp_kernels
+
+    dev = latents.device
+    C = latents.shape[1]
+    rows = torch.cat([torch.cat([lat.expand(m.vertices.shape[0], C),
+                                 torch.as_tensor(m.vertices).to(dev)], dim=1)
+                      for lat, m in zip(latents, meshes)])
+    sdf = mlp_kernels.mlp_sdf_plain(pk32, rows)
+    _, g = mlp_kernels.mlp_sdf_and_input_grad(pk32, rows)
+    return sdf.abs() / torch.linalg.norm(g[:, C:], dim=1).clamp_min(1e-6)
+
+
+def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=True):
+    """B4 vs its plain version on the mesher's grid (VOXELS^3 points under
+    each of `latents`): f32 held to max |d sdf| <= 1e-5, bf16 to the median
+    and p99 of |d sdf| (B4_BF16_GATE; a sign flip near zero moves a vertex by
+    a fraction of a voxel, so never to a per-point maximum). With `surface`,
+    the mesher's grid of each mode and the plain version's grid are meshed
+    and their vertex distance to the plain f32 decoder's zero level set is
+    measured; the mesher's mode must pass the surface gate (p95 < 0.35
+    voxel, p99.9 < 1 voxel), and the plain grid of the same mode shows what
+    of that distance is the mode's precision."""
+    import torch
+
+    from hortimapping_tpu_torch.ops import mlp_kernels
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+
+    B = latents.shape[0]
+    voxel = 2.0 * CUBE_RADIUS / (VOXELS - 1)
+    default = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS, device=dev)
+    mesher_mode = "bf16" if default.packed is not None and default.packed.bf16 else "f32"
+    out, surf = {}, {}
+
+    def surface_quantiles(mesher, grids):
+        meshes = mesher.meshes_from_grids(grids)
+        assert all(m.faces.shape[0] > 100 for m in meshes)
+        dist = surface_distances(pk32, meshes, latents) / voxel
+        return (*(float(torch.quantile(dist, q)) for q in (0.95, 0.999)), dist.numel())
+
+    for mode, pk in (("f32", pk32), ("bf16", pk16)):
+        mesher = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS,
+                               bf16=pk.bf16, device=dev)
+        pts = mesher.voxel_points
+        got = mlp_kernels.mlp_sdf_shared_latent(pk, latents, pts)
+        want = mlp_kernels.mlp_sdf_shared_latent_plain(pk, latents, pts)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        d = (got - want).abs()
+        err, med = float(d.max()), float(d.median())
+        p99 = float(torch.quantile(d.reshape(-1), 0.99))
+        if pk.bf16:
+            assert med <= B4_BF16_GATE["med"] and p99 <= B4_BF16_GATE["p99"], (phase, med, p99)
+            gate_s = f"(gates median {B4_BF16_GATE['med']}, p99 {B4_BF16_GATE['p99']})"
+        else:
+            assert err <= 1e-5, (phase, err)
+            gate_s = "(gate max 1e-5)"
+        surf_s = ""
+        if surface:
+            surf[mode] = surface_quantiles(mesher, mesher.decode_grids(latents))
+            p95_p, p999_p, _ = surface_quantiles(mesher, want.to(torch.float16))
+            surf_s = (f" | surface: vertex distance p95 {surf[mode][0]:.4f} p99.9 "
+                      f"{surf[mode][1]:.4f} voxel over {surf[mode][2]} vertices (plain {mode} "
+                      f"grid: p95 {p95_p:.4f} p99.9 {p999_p:.4f})")
+        ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_shared_latent(pk, latents, pts), 5)
+        plain_ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_shared_latent_plain(pk, latents, pts), 2)
+        rows = B * pts.shape[0]
+        flops, bound_ms, bound_by = fwd_bound(pk, rows, pts.numel() * 4 + latents.numel() * 4,
+                                              rows * 4)
+        out[mode] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"B4 mlp_shared_latent vs plain, {phase} grid, {mode}: {B} codes x {VOXELS}^3 points "
+              f"= {rows} rows | |d sdf| median {med:.3g} p99 {p99:.3g} max {err:.3g} {gate_s}"
+              f"{surf_s} | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+              f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call",
+              flush=True)
+    if surface:
+        p95, p999, _ = surf[mesher_mode]
+        assert p95 < 0.35 and p999 < 1.0, (mesher_mode, surf)
+        print(f"B4 surface gate ({mesher_mode}, the mesher's mode): p95 {p95:.4f} < 0.35 voxel, "
+              f"p99.9 {p999:.4f} < 1 voxel", flush=True)
+    return out[mesher_mode]
+
+
+def profile_main(run, smi, path: str, label: str) -> None:
+    """Trace one batch of a path with torch.profiler: its device-time table
+    is appended to `path`, one summary line goes to stdout."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -275,11 +462,143 @@ def profile_main(run, smi, path: str) -> None:
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(f"{smi}\nwall {wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.1f} ms\n")
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    print(f"profile: one traced batch {wall * 1e3:.1f} ms wall, kernels busy {dev_us / 1e3:.1f} ms "
-          f"(device idle share {1 - dev_us / 1e3 / (wall * 1e3):.3f}; table in {path})", flush=True)
+    with open(path, "a") as f:
+        f.write(f"==== {label}: {smi}\nwall {wall * 1e3:.1f} ms, device busy "
+                f"{dev_us / 1e3:.1f} ms\n")
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=40) + "\n")
+    print(f"profile, {label}: one traced batch {wall * 1e3:.1f} ms wall, kernels busy "
+          f"{dev_us / 1e3:.1f} ms (device idle share {1 - dev_us / 1e3 / (wall * 1e3):.3f}; "
+          f"table in {path})", flush=True)
+
+
+class LaunchCounts:
+    """The four kernels' launch counters: set to 0 when made, read by
+    `read` after the run they count."""
+
+    ALL = ("mlp_fwd_grad", "fused_render", "mlp_fwd", "mlp_shared_latent")
+
+    def __init__(self):
+        from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+
+        mlp_kernels.launches = mlp_kernels.launches_fwd = mlp_kernels.launches_shared_latent = 0
+        render_kernel.launches = 0
+        self.n = {}
+
+    def read(self) -> None:
+        from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+
+        self.n = dict(mlp_fwd_grad=mlp_kernels.launches, fused_render=render_kernel.launches,
+                      mlp_fwd=mlp_kernels.launches_fwd,
+                      mlp_shared_latent=mlp_kernels.launches_shared_latent)
+
+    def require(self, names, path: str) -> None:
+        assert all(self.n[k] > 0 for k in names), (path, self.n)
+
+    def __str__(self) -> str:
+        return ", ".join(f"{k} {v}" for k, v in self.n.items())
+
+
+class Stages:
+    """Host time of the stages of one warm-started batch: the outermost call
+    of each wrapped function, closed by a synchronize. The stages nest (the
+    rescue's re-retrieval and multi-start count under the rescue); what no
+    stage covers is `rest`."""
+
+    def __init__(self):
+        from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+        from hortimapping_tpu_torch.optim import lm, warmstart
+
+        self.targets = (("retrieval", warmstart, "_retrieve"),
+                        ("main LM", lm, "solve_in_chunks"),
+                        ("objective + rescue", warmstart, "selective_rescue"),
+                        ("grid decode", MeshExtractor, "decode_grids"),
+                        ("host meshing", MeshExtractor, "meshes_from_grids"))
+        self.t = {}
+        self._depth = 0
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def timed(*a, **k):
+            if self._depth:
+                return fn(*a, **k)
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                self._depth -= 1
+            self.t[name] = self.t.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        return timed
+
+    @contextlib.contextmanager
+    def timing(self):
+        self.t = {}
+        saved = [(owner, attr, getattr(owner, attr)) for _, owner, attr in self.targets]
+        for name, owner, attr in self.targets:
+            setattr(owner, attr, self._wrap(name, getattr(owner, attr)))
+        try:
+            yield
+        finally:
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+
+    def split(self) -> dict:
+        out = {name: self.t.get(name, 0.0) for name, _, _ in self.targets}
+        out["rest"] = self.t["batch"] - sum(out.values())
+        return out
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel swapped for its plain PyTorch version, on the card."""
+    from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+
+    swaps = ((mlp_kernels, "_fwd_grad_cuda", mlp_kernels.chain_plain),
+             (render_kernel, "_fused_render_cuda", render_kernel.fused_render_plain),
+             (mlp_kernels, "_fwd_cuda", mlp_kernels.forward_plain),
+             (mlp_kernels, "_shared_latent_cuda", mlp_kernels.shared_latent_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def inverse_poses(res):
+    """T_wo of each fruit (host, f64) from the solved T_ow."""
+    import numpy as np
+
+    return np.linalg.inv(res.T_ow.double().cpu().numpy())
+
+
+def check_result(res, meshes, n: int, C: int) -> None:
+    import torch
+
+    assert not bool(res.failed.any())
+    assert bool(torch.isfinite(res.latent).all()) and bool(torch.isfinite(res.T_ow).all())
+    assert res.latent.shape == (n, C) and len(meshes) == n
+    assert all(m.faces.shape[0] > 100 for m in meshes)
+
+
+def mean_cd_mm(meshes, gts, dev) -> float:
+    """Mean Chamfer-L1 (mm) of world-frame meshes (100k area-weighted
+    samples each) against the GT surface points."""
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.metrics.chamfer import chamfer_distance
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    return float(np.mean([chamfer_distance(torch.as_tensor(gt).to(dev),
+                                           m.sample_points_uniformly(100_000, g, dev))
+                          for m, gt in zip(meshes, gts)])) * 1e3
 
 
 def main() -> int:
@@ -301,12 +620,19 @@ def main() -> int:
     import numpy as np
 
     from hortimapping_tpu_torch import native, resolve_device
-    from hortimapping_tpu_torch.metrics.chamfer import chamfer_distance
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
     from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
     from hortimapping_tpu_torch.ops import cuda_build, mlp_kernels, render_kernel
     from hortimapping_tpu_torch.ops.mesher import MeshExtractor
     from hortimapping_tpu_torch.optim.lm import _subsample, subsample_observations
-    from hortimapping_tpu_torch.optim.warmstart import retrieval_init_batched, retrieval_joint_opt
+    from hortimapping_tpu_torch.optim import warmstart
+    from hortimapping_tpu_torch.optim.warmstart import (
+        maybe_retrieval_init,
+        multi_start_joint_opt,
+        retrieval_init_batched,
+        retrieval_joint_opt,
+        warmstart_solve,
+    )
 
     dev = resolve_device("cuda")  # pins TF32 off: f32 means f32 here
 
@@ -320,7 +646,8 @@ def main() -> int:
     native.load()
     build_s = time.perf_counter() - t0
     print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"build of both kernel libraries + host library {build_s:.1f} s", flush=True)
+          f"build of {len(cuda_build.KERNELS)} kernel libraries + host library {build_s:.1f} s",
+          flush=True)
     for name in cuda_build.KERNELS:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -329,61 +656,94 @@ def main() -> int:
     params, spec = config_decoder(os.path.join(ROOT, "assets", "synthetic_pepper_32"), device=dev)
     table = load_latent_vectors(os.path.join(ROOT, "assets", "synthetic_pepper_32"), device=dev)
     cfg = bench_cfg()
+    gh_cfg = JointOptConfig.from_dict(load_config(os.path.join(ROOT, "configs", GREENHOUSE_YAML)))
     C = spec.code_length
-    records = []
-
-    # ---------------- 2. B1 vs plain, at the SDF term's two shapes ----------------
     pk32 = mlp_kernels.pack_params(params, spec, torch.float32)
     pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    records = {}
+
+    # the bench batch (bench.py: 32 synthetic peppers, seed 42); the
+    # greenhouse config has the same observation shapes
+    obs, T0, gts = build_batch(spec, cfg, dev)
+    lat_r, T_r, _, _ = retrieval_init_batched(
+        params, spec, table, obs.points_w, obs.point_valid, n_score_pts=128, n_scales=1,
+        scale_min=1.0, scale_max=1.0, T_init=T0, score_bf16=True)
+    lat_g, T_g, _, _ = retrieval_init_batched(
+        params, spec, table, obs.points_w, obs.point_valid, n_score_pts=gh_cfg.retrieval_score_pts,
+        n_scales=1, scale_min=1.0, scale_max=1.0, T_init=T0, score_bf16=False)
+    pts_o = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+
+    # ---------------- 2. B3 vs plain, at both scoring shapes ----------------
+    # one launch of each: 16 fruits (score_chunk) of the batch at unit scale
+    b3 = {"bench": check_fwd("bench", pk16, table, pts_o[:16, :128], obs.point_valid[:16, :128],
+                             spec.clamping_distance)}
+    n_blk = (1 << 15) // gh_cfg.retrieval_score_pts   # _score_codes' block of codes
+    b3["greenhouse"] = check_fwd("greenhouse", pk32, table[:n_blk],
+                                 pts_o[:16, :gh_cfg.retrieval_score_pts],
+                                 obs.point_valid[:16, :gh_cfg.retrieval_score_pts],
+                                 spec.clamping_distance)
+    records["mlp_fwd"] = dict(
+        name="mlp_fwd", route="cuda", source="hortimapping_tpu_torch/csrc/mlp_fwd.cu",
+        replaces="hortimapping_tpu/ops/pallas_mlp.py:169", launches=0,
+        **{k: b3["greenhouse"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        max_abs_err=b3["greenhouse"]["err"], library_ms=None)
+
+    # ---------------- 3. B4 vs plain, on the mesher's grid ----------------
+    b4 = check_shared_latent("bench and greenhouse", params, spec, pk16, pk32, lat_r, dev)
+    records["mlp_shared_latent"] = dict(
+        name="mlp_shared_latent", route="cuda",
+        source="hortimapping_tpu_torch/csrc/mlp_shared_latent.cu",
+        replaces="hortimapping_tpu/ops/pallas_mlp.py:303", launches=0,
+        **{k: b4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        max_abs_err=b4["err"], library_ms=None)
+
+    # ---------------- 4. B1 and B2 vs plain, at the SDF and render shapes ----------------
     b1 = {}
-    for phase, frac in (("coarse", cfg.coarse_pts_frac), ("fine", cfg.fine_pts_frac)):
-        b1[phase] = check_mlp(phase, pk32, table, N_FRUITS * int(cfg.recon_n_pts * frac), dev)
+    for phase, n in (("bench coarse", int(cfg.recon_n_pts * cfg.coarse_pts_frac)),
+                     ("bench fine", int(cfg.recon_n_pts * cfg.fine_pts_frac)),
+                     ("greenhouse", gh_cfg.recon_n_pts)):
+        b1[phase] = check_mlp(phase, pk32, table, N_FRUITS * n, dev)
     # the same chain in bf16 on the tensor cores (the render kernel's mode)
-    x, flops = b1["fine"]["x"], b1["fine"]["flops"]
+    x, flops = b1["bench fine"]["x"], b1["bench fine"]["flops"]
     s16, g16 = mlp_kernels.mlp_sdf_and_input_grad(pk16, x)
     assert bool(torch.isfinite(s16).all()) and bool(torch.isfinite(g16).all())
     ms_16 = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad(pk16, x), 20)
     # modelled, not counted: each 32-row block reads the weights from L2 once
     # forward and once backward
     l2_bytes = 2 * -(-x.shape[0] // 32) * weight_bytes(pk16)
-    print(f"B1 in bf16 (tensor cores), fine rows: {ms_16:.3f} ms, {flops / ms_16 / 1e9:.1f} "
+    print(f"B1 in bf16 (tensor cores), bench fine rows: {ms_16:.3f} ms, {flops / ms_16 / 1e9:.1f} "
           f"TFLOP/s, weights read from L2 at {l2_bytes / ms_16 / 1e9:.2f} TB/s (modelled "
           f"traffic: once forward, once backward per 32-row block)", flush=True)
-    fine = b1["fine"]
-    records.append(dict(
+    gh = b1["greenhouse"]
+    records["mlp_fwd_grad"] = dict(
         name="mlp_fwd_grad", route="cuda", source="hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
         replaces="hortimapping_tpu/ops/pallas_mlp.py:198", launches=0,
-        max_abs_err=max(r["err"] for r in b1.values()), ms=fine["ms"], plain_ms=fine["plain_ms"],
-        bound_ms=fine["bound_ms"], bound_by=fine["bound_by"], library_ms=None,
-    ))
+        max_abs_err=max(r["err"] for r in b1.values()), ms=gh["ms"], plain_ms=gh["plain_ms"],
+        bound_ms=gh["bound_ms"], bound_by=gh["bound_by"], library_ms=None)
 
-    # ---------------- 3. B2 vs plain, at the render term's two shapes ----------------
-    obs, T0, gts = build_batch(spec, cfg, dev)
-    lat_r, T_r, _, _ = retrieval_init_batched(
-        params, spec, table, obs.points_w, obs.point_valid, n_score_pts=128, n_scales=1,
-        scale_min=1.0, scale_max=1.0, T_init=T0, score_bf16=True)
-    b2 = {"coarse": check_render("coarse", pk16, pk32, *subsample_observations(obs, cfg),
-                                 lat_r, T_r, dev)}
-    b2["fine"] = check_render("fine", pk16, pk32, *_subsample(
+    b2 = {"bench coarse": check_render("bench coarse", pk16, pk32,
+                                       *subsample_observations(obs, cfg), lat_r, T_r, dev)}
+    b2["bench fine"] = check_render("bench fine", pk16, pk32, *_subsample(
         obs, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac, cfg.fine_sample_frac,
         cfg.fine_pts_frac), lat_r, T_r, dev)
-    fine = b2["fine"]
-    records.append(dict(
+    b2["greenhouse"] = check_render("greenhouse", pk16, pk32, obs, gh_cfg, lat_g, T_g, dev)
+    gh = b2["greenhouse"]
+    records["fused_render"] = dict(
         name="fused_render", route="cuda", source="hortimapping_tpu_torch/csrc/fused_render.cu",
         replaces="hortimapping_tpu/ops/pallas_render.py:100", launches=0,
-        max_abs_err=max(r["err"] for r in b2.values()), ms=fine["ms"], plain_ms=fine["plain_ms"],
-        bound_ms=fine["bound_ms"], bound_by=fine["bound_by"], library_ms=None,
-    ))
+        max_abs_err=max(r["err"] for r in b2.values()), ms=gh["ms"], plain_ms=gh["plain_ms"],
+        bound_ms=gh["bound_ms"], bound_by=gh["bound_by"], library_ms=None)
     if args.quick:
-        print(json.dumps({"kernels": records}))
+        print(json.dumps({"kernels": list(records.values())}))
         return 0
 
-    # ---------------- 4. main path ----------------
+    # ---------------- 5. bench path ----------------
     mesher = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS, device=dev)
-
+    mesher32 = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS, bf16=False,
+                             device=dev)
     split = {}
 
-    def run():
+    def run_bench():
         t0 = time.perf_counter()
         res = retrieval_joint_opt(
             params, spec, cfg, table, obs, T0, CUBE_RADIUS, n_score_pts=128, n_scales=1,
@@ -396,68 +756,174 @@ def main() -> int:
         meshes = mesher.meshes_from_grids(grids)
         torch.cuda.synchronize()
         split.update(solve=t1 - t0, decode=t2 - t1, mt=time.perf_counter() - t2)
-        return res, meshes
+        return res, [m.transform(T) for m, T in zip(meshes, inverse_poses(res))]
 
-    def mean_cd_mm(res, meshes):
-        T_wo = np.linalg.inv(res.T_ow.double().cpu().numpy())
-        g = torch.Generator(device=dev).manual_seed(1)
-        cds = []
-        for mesh, gt, T in zip(meshes, gts, T_wo):
-            pts_m = mesh.transform(T).sample_points_uniformly(100_000, g, dev)
-            cds.append(chamfer_distance(torch.as_tensor(gt).to(dev), pts_m))
-        return float(np.mean(cds)) * 1e3
-
-    run()  # warm-up: first launches, cuBLAS/cuSOLVER handles
-    times, splits, counts = [], [], None
+    run_bench()  # warm-up: first launches, cuBLAS/cuSOLVER handles
+    times, splits = [], []
     for _ in range(3):
-        mlp_kernels.launches = 0
-        render_kernel.launches = 0
+        counts = LaunchCounts()
         t0 = time.perf_counter()
-        res, meshes = run()
+        res, meshes = run_bench()
         times.append(time.perf_counter() - t0)
-        counts = (mlp_kernels.launches, render_kernel.launches)
+        counts.read()
         splits.append(dict(split))
-    assert counts[0] > 0 and counts[1] > 0, counts
-    assert not bool(res.failed.any())
-    assert bool(torch.isfinite(res.latent).all()) and bool(torch.isfinite(res.T_ow).all())
-    assert res.latent.shape == (N_FRUITS, C) and len(meshes) == N_FRUITS
-    assert all(m.faces.shape[0] > 100 for m in meshes)
-    cd_k = mean_cd_mm(res, meshes)
+    counts.require(LaunchCounts.ALL, "bench path")
+    check_result(res, meshes, N_FRUITS, C)
+    cd_k = mean_cd_mm(meshes, gts, dev)
+    cd_32 = mean_cd_mm([m.transform(T) for m, T in
+                        zip(mesher32.extract_batch(res.latent), inverse_poses(res))], gts, dev)
     ms_batch = float(np.median(times)) * 1e3
-    records[0]["launches"], records[1]["launches"] = counts
-    print(f"main path: B={N_FRUITS} synthetic_pepper_32 (9 layers x 512) | retrieval + c2f LM "
+    print(f"bench path: B={N_FRUITS} synthetic_pepper_32 (9 layers x 512) | retrieval + c2f LM "
           f"+ 40^3 meshing | {ms_batch:.1f} ms/batch (median of {len(times)}: "
           f"{[round(t * 1e3, 1) for t in times]}), {ms_batch / N_FRUITS:.2f} ms/fruit | "
-          f"mean iters {float(res.iter_count.float().mean()):.2f} | mean CD-L1 {cd_k:.4f} mm | "
-          f"launches mlp_fwd_grad {counts[0]}, fused_render {counts[1]} | {smi}", flush=True)
+          f"mean iters {float(res.iter_count.float().mean()):.2f} | mean CD-L1 {cd_k:.4f} mm "
+          f"(f32 grids of the same codes: {cd_32:.4f} mm) | launches {counts} | {smi}", flush=True)
     med = {k: float(np.median([s[k] for s in splits])) * 1e3 for k in splits[0]}
-    print(f"main path split (median ms): retrieval + LM {med['solve']:.1f}, grid decode "
+    print(f"bench path split (median ms): retrieval + LM {med['solve']:.1f}, grid decode "
           f"{med['decode']:.1f}, host marching tetrahedra {med['mt']:.1f}", flush=True)
     if args.profile:
-        profile_main(run, smi, args.profile)
+        profile_main(run_bench, smi, args.profile, "bench path")
 
-    # ---------------- 5. functional gate: plain versions swapped in ----------------
-    saved = (mlp_kernels._fwd_grad_cuda, render_kernel._fused_render_cuda)
-    mlp_kernels._fwd_grad_cuda = mlp_kernels.chain_plain
-    render_kernel._fused_render_cuda = render_kernel.fused_render_plain
-    try:
-        run()  # warm-up of the plain path
+    with plain_versions():
+        run_bench()  # warm-up of the plain path
         t_plain = []
         for _ in range(3):
             t0 = time.perf_counter()
-            res_p, meshes_p = run()
+            res_p, meshes_p = run_bench()
             t_plain.append(time.perf_counter() - t0)
-    finally:
-        mlp_kernels._fwd_grad_cuda, render_kernel._fused_render_cuda = saved
-    cd_p = mean_cd_mm(res_p, meshes_p)
+    cd_p = mean_cd_mm(meshes_p, gts, dev)
     gap = cd_k - cd_p
-    print(f"functional gate: mean CD kernels {cd_k:.4f} mm vs plain {cd_p:.4f} mm, gap "
-          f"{gap:+.4f} mm (gate {CD_GATE_MM} mm) | plain-path batch {np.median(t_plain) * 1e3:.1f} "
-          f"ms (median of 3: {[round(t * 1e3, 1) for t in t_plain]}) | "
-          f"mean iters plain {float(res_p.iter_count.float().mean()):.2f}", flush=True)
+    print(f"bench functional gate: mean CD kernels {cd_k:.4f} mm vs plain {cd_p:.4f} mm, gap "
+          f"{gap:+.4f} mm (gate {CD_GATE_MM} mm) | plain-path batch "
+          f"{np.median(t_plain) * 1e3:.1f} ms (median of 3: {[round(t * 1e3, 1) for t in t_plain]})"
+          f" | mean iters plain {float(res_p.iter_count.float().mean()):.2f}", flush=True)
     assert abs(gap) <= CD_GATE_MM, gap
 
-    print(json.dumps({"kernels": records}))
+    # ---------------- 6. greenhouse path (this slice's main path) ----------------
+    lat_mean = table.mean(0, keepdim=True).expand(N_FRUITS, C).contiguous()
+    stages = Stages()
+
+    def run_gh(o, T, lat0, cfg_, n):
+        with stages.timing():
+            t0 = time.perf_counter()
+            res = warmstart_solve(params, spec, cfg_, table, o, lat0, T, CUBE_RADIUS, device=dev)
+            meshes = mesher.complete_mesh_batch(res.latent, inverse_poses(res))
+            torch.cuda.synchronize()
+            stages.t["batch"] = time.perf_counter() - t0
+        check_result(res, meshes, n, C)
+        return res, meshes
+
+    print(f"greenhouse path: configs/{GREENHOUSE_YAML} (init_mode {gh_cfg.init_mode}, "
+          f"{gh_cfg.retrieval_n_scales} scale, {gh_cfg.retrieval_score_pts} points "
+          f"{'bf16' if gh_cfg.retrieval_score_bf16 else 'f32'} scoring; max_iter "
+          f"{gh_cfg.max_iter}, rot_damp {gh_cfg.rot_damp}, rescue_starts {gh_cfg.rescue_starts}, "
+          f"coarse_to_fine {gh_cfg.coarse_to_fine}) | B={N_FRUITS}, {gh_cfg.n_frame} frames x "
+          f"{gh_cfg.n_rays} rays x {gh_cfg.n_sample_on_ray} samples, {gh_cfg.recon_n_pts} points",
+          flush=True)
+    run_gh(obs, T0, lat_mean, gh_cfg, N_FRUITS)  # warm-up
+    times, splits = [], []
+    while len(times) < (2 if times and times[0] > 10.0 else 3):
+        counts = LaunchCounts()
+        res, meshes = run_gh(obs, T0, lat_mean, gh_cfg, N_FRUITS)
+        counts.read()
+        times.append(stages.t["batch"])
+        splits.append(stages.split())
+    counts.require(LaunchCounts.ALL, "greenhouse path")
+    for name, n in counts.n.items():
+        records[name]["launches"] = n
+    info = dict(warmstart.LAST_RESCUE_INFO)
+    cd_gh = mean_cd_mm(meshes, gts, dev)
+    ms_batch = float(np.median(times)) * 1e3
+    med = {k: float(np.median([s[k] for s in splits])) * 1e3 for k in splits[0]}
+    print(f"greenhouse path: {ms_batch:.1f} ms/batch (median of {len(times)}: "
+          f"{[round(t * 1e3, 1) for t in times]}), {ms_batch / N_FRUITS:.2f} ms/fruit | "
+          f"mean iters {float(res.iter_count.float().mean()):.2f} (converged "
+          f"{int(res.converged.sum())}/{N_FRUITS}) | mean CD-L1 {cd_gh:.4f} mm | rescue: "
+          f"n_rescued {info.get('n_rescued')}, lanes {info.get('lanes')}, accepted "
+          f"{info.get('accepted')} | launches {counts} | {smi}", flush=True)
+    print("greenhouse path split (median ms): " + ", ".join(f"{k} {v:.1f}" for k, v in med.items()),
+          flush=True)
+    if not info.get("n_rescued"):
+        # no hard lane: run the rescue's multi-start once, at its own shape
+        _, _, top_codes, top_T = retrieval_init_batched(
+            params, spec, table, obs.points_w[:4], obs.point_valid[:4], top_k=4,
+            n_score_pts=gh_cfg.retrieval_score_pts, n_scales=1, scale_min=1.0, scale_max=1.0,
+            T_init=T0[:4])
+        o4 = type(obs)(*(a[:4] for a in obs))
+        ms_res = multi_start_joint_opt(params, spec, gh_cfg, o4, top_codes, top_T, CUBE_RADIUS,
+                                       device=dev)
+        assert not bool(ms_res.failed.any()) and bool(torch.isfinite(ms_res.latent).all())
+        print(f"greenhouse multi-start (no hard lane in the batch): 4 fruits x K=4 starts, mean "
+              f"iters {float(ms_res.iter_count.float().mean()):.2f}", flush=True)
+    if args.profile:
+        profile_main(lambda: run_gh(obs, T0, lat_mean, gh_cfg, N_FRUITS), smi, args.profile,
+                     "greenhouse path")
+
+    def functional_gate(label, o, T, lat0, cfg_, n, gts_):
+        """The path on `o` with the kernels, then with every kernel swapped
+        for its plain version: mean Chamfer-L1 within CD_GATE_MM."""
+        res_k, meshes_k = run_gh(o, T, lat0, cfg_, n)
+        t_k = stages.t["batch"]
+        with plain_versions():
+            res_p, meshes_p = run_gh(o, T, lat0, cfg_, n)
+            t_p = stages.t["batch"]
+        cd_k, cd_p = mean_cd_mm(meshes_k, gts_, dev), mean_cd_mm(meshes_p, gts_, dev)
+        gap = cd_k - cd_p
+        print(f"{label} functional gate: B={n}, mean CD kernels {cd_k:.4f} mm vs plain "
+              f"{cd_p:.4f} mm, gap {gap:+.4f} mm (gate {CD_GATE_MM} mm) | batch kernels "
+              f"{t_k * 1e3:.1f} ms, plain {t_p * 1e3:.1f} ms | mean iters kernels "
+              f"{float(res_k.iter_count.float().mean()):.2f}, plain "
+              f"{float(res_p.iter_count.float().mean()):.2f}", flush=True)
+        assert abs(gap) <= CD_GATE_MM, (label, gap)
+
+    # ---------------- 7. trust-region path ----------------
+    tr_cfg = JointOptConfig.from_dict(load_config(os.path.join(ROOT, "configs", CHALLENGE_YAML)))
+    assert tr_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
+    obs_tr, T0_tr, gts_tr = build_batch(spec, tr_cfg, dev, n=N_TR)
+    lat_tr = lat_mean[:N_TR]
+    # every kernel at the shapes this path gives it: one scoring launch (the
+    # batch's fruits x 5 scales against one block of codes), the grid of the
+    # retrieved codes, the SDF term and the render term at the retrieved
+    # codes and poses
+    lat_rt, T_rt = maybe_retrieval_init(params, spec, tr_cfg, table, obs_tr, lat_tr, T0_tr,
+                                        device=dev)
+    P = tr_cfg.retrieval_score_pts
+    pts_tr = (obs_tr.points_w @ T0_tr[:, :3, :3].transpose(1, 2) + T0_tr[:, None, :3, 3])[:, :P]
+    scales = torch.linspace(tr_cfg.retrieval_scale_min, tr_cfg.retrieval_scale_max,
+                            tr_cfg.retrieval_n_scales, device=dev)
+    S = scales.shape[0]
+    check_fwd("trust region", pk16 if tr_cfg.retrieval_score_bf16 else pk32,
+              table[:(1 << 15) // P],
+              (scales[None, :, None, None] * pts_tr[:, None]).reshape(N_TR * S, P, 3),
+              obs_tr.point_valid[:, None, :P].expand(N_TR, S, P).reshape(N_TR * S, P),
+              spec.clamping_distance)
+    check_shared_latent("trust region", params, spec, pk16, pk32, lat_rt, dev, surface=False)
+    check_mlp("trust region", pk32, table, N_TR * tr_cfg.recon_n_pts, dev)
+    check_render("trust region", pk16, pk32, obs_tr, tr_cfg, lat_rt, T_rt, dev)
+
+    run_gh(obs_tr, T0_tr, lat_tr, tr_cfg, N_TR)  # warm-up
+    t_tr = []
+    for _ in range(3):
+        counts = LaunchCounts()
+        res_tr, meshes_tr = run_gh(obs_tr, T0_tr, lat_tr, tr_cfg, N_TR)
+        counts.read()
+        t_tr.append(stages.t["batch"])
+    counts.require(LaunchCounts.ALL, "trust-region path")
+    print(f"trust-region path: configs/{CHALLENGE_YAML} (trust_region {tr_cfg.trust_region}, "
+          f"{tr_cfg.retrieval_n_scales}-scale retrieval, max_iter {tr_cfg.max_iter}) | B={N_TR}, "
+          f"{tr_cfg.n_frame} frames x {tr_cfg.n_rays} rays x {tr_cfg.n_sample_on_ray} samples, "
+          f"{tr_cfg.recon_n_pts} points | {np.median(t_tr) * 1e3:.1f} ms/batch (median of 3: "
+          f"{[round(t * 1e3, 1) for t in t_tr]}) | mean iters "
+          f"{float(res_tr.iter_count.float().mean()):.2f} (converged "
+          f"{int(res_tr.converged.sum())}/{N_TR}) | mean CD-L1 {mean_cd_mm(meshes_tr, gts_tr, dev):.4f}"
+          f" mm | launches {counts} | {smi}", flush=True)
+    functional_gate("trust-region", obs_tr, T0_tr, lat_tr, tr_cfg, N_TR, gts_tr)
+
+    # ---------------- 8. functional gate of the greenhouse path ----------------
+    o8 = type(obs)(*(a[:N_GATE] for a in obs))
+    functional_gate("greenhouse", o8, T0[:N_GATE], lat_mean[:N_GATE], gh_cfg, N_GATE, gts[:N_GATE])
+
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

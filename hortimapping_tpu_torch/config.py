@@ -66,7 +66,7 @@ class JointOptConfig:
     epsilon_r: float = 1.0
     epsilon_s: float = 1e-3
     robust_iter: int = 5
-    # adaptive trust-region damping (not ported yet: the solver raises)
+    # adaptive trust-region damping (optim/lm.py lm_iteration_tr)
     trust_region: bool = False
     tr_lambda_min: float = 1e-6
     tr_lambda_max: float = 1e5
@@ -144,16 +144,8 @@ class JointOptConfig:
 
     def check_ported(self) -> None:
         """Raise for the solver options whose slice of the port has not
-        landed yet (`ROADMAP.md` Queue A row 10 and row 13)."""
+        landed yet (`ROADMAP.md` Queue A row 13)."""
         missing = []
-        if self.trust_region:
-            missing.append("trust_region")
-        if self.pose_polish_iters > 0:
-            missing.append("pose_polish_iters > 0")
-        if self.multi_start > 1:
-            missing.append("multi_start > 1")
-        if self.rescue_starts > 0:
-            missing.append("rescue_starts > 0")
         if self.init_mode not in ("mean", "retrieval"):
             missing.append(f"init_mode={self.init_mode!r}")
         if self.jac_cap != -1 or self.fwd_cap != -1:

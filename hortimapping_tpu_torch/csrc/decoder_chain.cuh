@@ -1,10 +1,11 @@
-// Frozen DeepSDF decoder chain shared by both CUDA kernels of the port:
+// Frozen DeepSDF decoder chain shared by all four CUDA kernels of the port:
 // the forward (ReLU layers, latent_in skip, tanh head) and the input-gradient
 // backward (one reverse chain of g @ W^T products masked by the ReLU signs,
 // no weight gradients). Counterpart of `_fwd_chain` + `input_grad_chain` in
-// hortimapping_tpu/ops/pallas_mlp.py, which the two Pallas kernels share for
-// the same reason: the standalone kernel (mlp_fwd_grad.cu) and the fused
-// render kernel (fused_render.cu) can never drift apart.
+// hortimapping_tpu/ops/pallas_mlp.py, which the Pallas kernels share for
+// the same reason: the fwd+grad kernel (mlp_fwd_grad.cu), the fused render
+// kernel (fused_render.cu) and the two forward-only kernels (mlp_fwd.cu,
+// mlp_shared_latent.cu) can never drift apart.
 //
 // Layout on Hopper (not the TPU's): a block of 256 threads (8 warps) pushes
 // a chunk of 32 rows (64 in the render kernel's bf16 forward) through the
@@ -55,6 +56,11 @@ constexpr int kMaxNT = kMaxWidth / 8 / kWarps;  // bf16 path: n-tiles per warp
 constexpr int kPadBf16 = 8;            // bf16 row pad (elements)
 constexpr int kStages = 3;             // bf16 path: k-steps of weights in the ring per warp
 constexpr int kStageBytes = kMaxNT * 8 * 32;  // one warp's B fragments of one k-step
+
+// Rows a forward chunk: 64 on the tensor cores (each weight fragment then
+// serves 64 rows), 32 for the f32 chain (more spill its registers).
+template <typename WT>
+constexpr int kFwdRows = std::is_same<WT, __nv_bfloat16>::value ? 64 : kChunk;
 
 template <typename WT>
 struct DecoderWeights {
@@ -365,8 +371,8 @@ __device__ __forceinline__ void masks_from_h(const WT* h, int ldh, int D, int ro
 // ------------------------------------------------------------------ chain
 
 // Forward of one chunk of ROWS rows (32, or 64 with bf16): reads buf.x,
-// writes the masks ((n_mid + 1) layers) and buf.y. Every thread of the
-// block calls it.
+// writes the masks ((n_mid + 1) layers; none when masks is null, for a
+// forward-only kernel) and buf.y. Every thread of the block calls it.
 template <typename WT, int ROWS = kChunk>
 __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
                               uint32_t* __restrict__ masks) {
@@ -376,7 +382,6 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
   const WT* x = reinterpret_cast<const WT*>(buf.x);
   for (int l = 0; l <= w.n_mid; ++l) {
     const float* bias = l == 0 ? w.b0 : w.bm + (size_t)(l - 1) * D;
-    uint32_t* mk = masks + (size_t)l * mask_layer_words(D, ROWS);
     if constexpr (std::is_same<WT, bf16>::value) {
       constexpr int MT = ROWS / 16;
       float acc[MT][kMaxNT][4];
@@ -426,8 +431,10 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
       }
     }
     __syncthreads();
-    masks_from_h<WT>(h, ldh, D, ROWS, mk);
-    __syncthreads();
+    if (masks != nullptr) {  // block-uniform
+      masks_from_h<WT>(h, ldh, D, ROWS, masks + (size_t)l * mask_layer_words(D, ROWS));
+      __syncthreads();
+    }
     if (l + 1 == w.li) {
       // latent_in: layer li reads concat(h, x); the last in_dim outputs of
       // layer li-1 are zero-padded, so the concat is a write into them

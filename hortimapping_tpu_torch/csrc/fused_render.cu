@@ -79,11 +79,8 @@ __device__ __forceinline__ float jac_entry(int d, const float* g, const float* p
   return g[d - pose_dim];
 }
 
-// Rows a forward chunk: 64 on the tensor cores (each weight fragment then
-// serves 64 rows), 32 for the f32 chain. Band chunks of the backward: 32.
-template <typename WT>
-constexpr int kFwdRows = std::is_same<WT, __nv_bfloat16>::value ? 64 : kChunk;
-
+// Forward chunks of kFwdRows rows (decoder_chain.cuh); band chunks of the
+// backward: 32.
 // 32-row units of a tile of tr rays x M samples, rounded up to whole
 // forward chunks.
 __host__ __device__ inline int render_units(int tr, int M, bool bf16) {

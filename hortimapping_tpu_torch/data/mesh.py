@@ -16,6 +16,10 @@ class TriangleMesh:
     faces: np.ndarray                        # (F, 3) int
     vertex_colors: Optional[np.ndarray] = None
 
+    def paint_uniform_color(self, color) -> "TriangleMesh":
+        c = np.tile(np.asarray(color, np.float64)[None, :], (self.vertices.shape[0], 1))
+        return TriangleMesh(self.vertices, self.faces, c)
+
     def transform(self, T: np.ndarray) -> "TriangleMesh":
         v = self.vertices @ T[:3, :3].T + T[:3, 3]
         return TriangleMesh(v, self.faces, self.vertex_colors)

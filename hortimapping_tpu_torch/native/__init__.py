@@ -1,6 +1,6 @@
 """ctypes binding of the host C++ code (`src/horti_native.cpp`, a copy of
-the JAX package's source): marching tetrahedra and brute-force NN
-distances.
+the JAX package's source): marching tetrahedra, marching cubes and
+brute-force NN distances.
 
 The library is built with g++ at first use into the port's own build
 directory (`hortimapping_tpu_torch/_build/`), never next to the source. A
@@ -51,12 +51,13 @@ def load() -> ctypes.CDLL:
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         fp = ctypes.POINTER(ctypes.c_float)
-        lib.horti_marching_tetrahedra.restype = ctypes.c_int
-        lib.horti_marching_tetrahedra.argtypes = [
-            fp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.POINTER(fp), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)), ctypes.POINTER(ctypes.c_int64),
-        ]
+        for fn in (lib.horti_marching_tetrahedra, lib.horti_marching_cubes):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [
+                fp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.POINTER(fp), ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)), ctypes.POINTER(ctypes.c_int64),
+            ]
         lib.horti_free.argtypes = [ctypes.c_void_p]
         lib.horti_nn_distances.restype = None
         lib.horti_nn_distances.argtypes = [fp, ctypes.c_int64, fp, ctypes.c_int64, fp]
@@ -64,18 +65,15 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-def marching_tetrahedra(grid: np.ndarray, iso: float = 0.0,
-                        spacing: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
-    """Iso-surface of a (nx, ny, nz) field: (verts (V, 3) f32 in
-    index * spacing coordinates, faces (F, 3) int32), watertight (consistent
-    6-tet cube decomposition, welded vertices)."""
+def _iso_surface(entry: str, grid: np.ndarray, iso: float,
+                 spacing: float) -> Tuple[np.ndarray, np.ndarray]:
     grid = np.ascontiguousarray(grid, np.float32)
     lib = load()
     nx, ny, nz = grid.shape
     pv = ctypes.POINTER(ctypes.c_float)()
     pf = ctypes.POINTER(ctypes.c_int32)()
     nv, nf = ctypes.c_int64(), ctypes.c_int64()
-    rc = lib.horti_marching_tetrahedra(
+    rc = getattr(lib, entry)(
         grid.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), nx, ny, nz,
         ctypes.c_float(iso), ctypes.c_float(spacing),
         ctypes.byref(pv), ctypes.byref(nv), ctypes.byref(pf), ctypes.byref(nf),
@@ -91,6 +89,22 @@ def marching_tetrahedra(grid: np.ndarray, iso: float = 0.0,
         lib.horti_free(pv)
         lib.horti_free(pf)
     return verts, faces
+
+
+def marching_tetrahedra(grid: np.ndarray, iso: float = 0.0,
+                        spacing: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Iso-surface of a (nx, ny, nz) field: (verts (V, 3) f32 in
+    index * spacing coordinates, faces (F, 3) int32), watertight (consistent
+    6-tet cube decomposition, welded vertices)."""
+    return _iso_surface("horti_marching_tetrahedra", grid, iso, spacing)
+
+
+def marching_cubes(grid: np.ndarray, iso: float = 0.0,
+                   spacing: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Classic cube-cell marching cubes, in the layout of
+    `marching_tetrahedra`: the same welded crossing-edge vertices, about half
+    the triangles, outward winding (normals toward +SDF)."""
+    return _iso_surface("horti_marching_cubes", grid, iso, spacing)
 
 
 def nn_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:

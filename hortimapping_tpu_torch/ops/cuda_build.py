@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("mlp_fwd_grad", "fused_render")
+KERNELS = ("mlp_fwd_grad", "fused_render", "mlp_fwd", "mlp_shared_latent")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,14 +1,22 @@
-"""Mesh extraction: batched SDF grid decode on the device + host marching
-tetrahedra (counterpart of `hortimapping_tpu/ops/mesher.py`).
+"""Mesh extraction: batched SDF grid decode on the device + host iso-surfacing
+(counterpart of `hortimapping_tpu/ops/mesher.py`).
 
-The grid decode is a plain decoder forward in f32 (the JAX package leaves it
-to XLA too), chunked over fruits to a 6 GiB activation budget, and shipped
-to the host as f16: iso-surfacing needs only the zero crossing.
+The grid decode has two routes, as the JAX package's `use_pallas`:
+* the kernel route (`use_kernel`, the default on the card for a
+  kernel-supported decoder): the shared-latent kernel B4, one launch for all
+  codes of a chunk, each block building its [code | xyz] rows on chip, in
+  bf16 (the JAX kernel route's storage type) or f32;
+* the plain route (`use_kernel=False`, and the default on the CPU): a plain
+  f32 decoder forward, as the JAX package's default XLA route.
+Both decode `decode_chunk` fruits at a time (a 6 GiB activation budget of
+the plain route) and ship the grid to the host as f16: iso-surfacing needs
+only the zero crossing.
 """
 
 from __future__ import annotations
 
-from typing import List
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +25,7 @@ from hortimapping_tpu_torch import native
 from hortimapping_tpu_torch.data.mesh import TriangleMesh
 from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params, decoder_apply
+from hortimapping_tpu_torch.ops import mlp_kernels
 
 ACTIVATION_BUDGET = 6 * 1024**3
 
@@ -35,43 +44,89 @@ def create_voxel_grid(vol_dim: int) -> np.ndarray:
 
 class MeshExtractor:
     """Decode latent codes to watertight meshes (verts in the object frame,
-    cube-radius scaled)."""
+    cube-radius scaled). `method`: "mt" (marching tetrahedra) or "mc"
+    (marching cubes, the reference's cell structure)."""
 
     def __init__(self, params: Params, spec: DecoderSpec, voxels_dim: int = 64,
-                 cube_radius: float = 1.0, device: str | torch.device = "cuda"):
+                 cube_radius: float = 1.0, use_kernel: Optional[bool] = None,
+                 bf16: bool = True, method: str = "mt",
+                 device: str | torch.device = "cuda"):
+        if method not in ("mt", "mc"):
+            raise ValueError(f"unknown iso-surface method {method!r}")
         self.device = resolve_device(device)
         self.params = params
         self.spec = spec
         self.voxels_dim = voxels_dim
         self.cube_radius = cube_radius
+        self._iso_surface = native.marching_cubes if method == "mc" else native.marching_tetrahedra
         self.voxel_points = torch.as_tensor(create_voxel_grid(voxels_dim)).to(self.device) * cube_radius
+        if use_kernel is None:
+            use_kernel = self.device.type == "cuda"
+        self.packed = None
+        if use_kernel and mlp_kernels.supported(spec):
+            self.packed = mlp_kernels.pack_params(params, spec,
+                                                  torch.bfloat16 if bf16 else torch.float32)
         width = max(spec.dims) if spec.dims else 512
         self.decode_chunk = max(1, ACTIVATION_BUDGET // (voxels_dim**3 * width * 4))
+
+    def _decode(self, lat: torch.Tensor) -> torch.Tensor:
+        """[b, C] -> [b, D^3] f32 SDF on the device."""
+        if self.packed is not None:
+            return mlp_kernels.mlp_sdf_shared_latent(self.packed, lat, self.voxel_points)
+        b, C = lat.shape
+        n = self.voxel_points.shape[0]
+        inp = torch.cat([lat[:, None, :].expand(b, n, C), self.voxel_points.expand(b, n, 3)], dim=-1)
+        return decoder_apply(self.params, self.spec, inp)[..., 0]
 
     def decode_grids(self, latents: torch.Tensor) -> torch.Tensor:
         """[B, C] codes -> [B, D^3] f16 SDF grids on the device, decoded
         `decode_chunk` fruits at a time."""
         latents = latents.to(self.device)
-        out = []
-        n = self.voxel_points.shape[0]
-        for lo in range(0, latents.shape[0], self.decode_chunk):
-            lat = latents[lo:lo + self.decode_chunk]
-            b, C = lat.shape
-            inp = torch.cat([lat[:, None, :].expand(b, n, C),
-                             self.voxel_points.expand(b, n, 3)], dim=-1)
-            out.append(decoder_apply(self.params, self.spec, inp)[..., 0].to(torch.float16))
-        return torch.cat(out)
+        return torch.cat([self._decode(latents[lo:lo + self.decode_chunk]).to(torch.float16)
+                          for lo in range(0, latents.shape[0], self.decode_chunk)])
+
+    def decode_sdf_grid(self, latent: torch.Tensor) -> np.ndarray:
+        """(D, D, D) SDF values of one code, on the host."""
+        d = self.voxels_dim
+        return self.decode_grids(latent.reshape(1, -1))[0].cpu().numpy().reshape(d, d, d)
+
+    def extract_mesh_from_code(self, latent: torch.Tensor) -> TriangleMesh:
+        return self._grid_to_mesh(self.decode_sdf_grid(latent))
 
     def meshes_from_grids(self, grids: torch.Tensor) -> List[TriangleMesh]:
+        """Host iso-surfacing of grids from `decode_grids`."""
         d = self.voxels_dim
         host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
+        # threads pay only from 64^3 up: the native call releases the GIL,
+        # but at smaller grids the per-fruit numpy work around it dominates
+        if host.shape[0] > 4 and d >= 64:
+            with ThreadPoolExecutor(max_workers=min(8, host.shape[0])) as ex:
+                return list(ex.map(self._grid_to_mesh, host))
         return [self._grid_to_mesh(g) for g in host]
 
     def extract_batch(self, latents: torch.Tensor) -> List[TriangleMesh]:
         return self.meshes_from_grids(self.decode_grids(latents))
 
+    def complete_mesh(self, latent: torch.Tensor, transform: np.ndarray,
+                      color: Optional[Sequence[float]] = None) -> TriangleMesh:
+        """Extract, color, pose: verts in the frame `transform` maps the
+        object frame to."""
+        mesh = self.extract_mesh_from_code(latent)
+        if color is not None:
+            mesh = mesh.paint_uniform_color(color)
+        return mesh.transform(np.asarray(transform))
+
+    def complete_mesh_batch(self, latents: torch.Tensor, transforms: Sequence[np.ndarray],
+                            colors: Optional[Sequence[Sequence[float]]] = None) -> List[TriangleMesh]:
+        out = []
+        for i, mesh in enumerate(self.extract_batch(latents)):
+            if colors is not None:
+                mesh = mesh.paint_uniform_color(colors[i])
+            out.append(mesh.transform(np.asarray(transforms[i])))
+        return out
+
     def _grid_to_mesh(self, grid: np.ndarray) -> TriangleMesh:
         voxel_size = 2.0 / (self.voxels_dim - 1)
-        verts, faces = native.marching_tetrahedra(grid, iso=0.0, spacing=voxel_size)
+        verts, faces = self._iso_surface(grid, iso=0.0, spacing=voxel_size)
         verts = (verts - 1.0) * self.cube_radius
         return TriangleMesh(verts.astype(np.float32), faces.astype(np.int32))

@@ -1,18 +1,21 @@
-"""Decoder forward + input gradient: the CUDA kernel, its plain version and
-the weight packing both share.
+"""The decoder kernels: forward + input gradient (B1), forward alone (B3)
+and forward of points sharing one code (B4), their plain versions and the
+weight packing they share.
 
 Counterpart of `hortimapping_tpu/ops/pallas_mlp.py` (`supported`,
-`pack_params`, `mlp_sdf_and_input_grad`). The kernel is
-`csrc/mlp_fwd_grad.cu` over the chain in `csrc/decoder_chain.cuh`. A CUDA
-tensor goes to the kernel and nowhere else; only a CPU tensor takes the
-plain version, `mlp_sdf_and_input_grad_plain`, which writes out the same
-forward and reverse chain (not autograd) with the same roundings.
+`pack_params`, `mlp_sdf_and_input_grad`, `mlp_sdf`,
+`mlp_sdf_shared_latent`, `PallasDecoder`). The kernels are
+`csrc/mlp_fwd_grad.cu`, `csrc/mlp_fwd.cu` and `csrc/mlp_shared_latent.cu`,
+all over the chain in `csrc/decoder_chain.cuh`. A CUDA tensor goes to the
+kernel and nowhere else; only a CPU tensor takes the plain version
+(`*_plain`), which writes out the same forward and reverse chain (not
+autograd) with the same roundings.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,12 +24,16 @@ from hortimapping_tpu_torch.ops import cuda_build
 
 MAX_WIDTH = 512      # widest hidden layer the kernels take (decoder_chain.cuh kMaxWidth)
 PLAIN_ROWS = 1 << 16  # rows per pass of the plain chain (bounds its activations)
+MAX_CODES = 65535    # codes one launch of the shared-latent kernel takes (grid.y)
 
 # weight tensors of a PackedDecoder, in the order the C entries take them
 WEIGHT_NAMES = ("w0", "w0t", "w0tk", "wm", "wmt", "wl", "b0", "bm")
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of each CUDA kernel since its count was last set to 0: B1
+# (fwd+input grad), B3 (forward), B4 (shared-latent forward)
 launches = 0
+launches_fwd = 0
+launches_shared_latent = 0
 
 
 def supported(spec: DecoderSpec) -> bool:
@@ -120,10 +127,12 @@ def _round(v: torch.Tensor, bf16: bool) -> torch.Tensor:
     return v.to(torch.bfloat16).float() if bf16 else v
 
 
-def _chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward and input-gradient chain on rows x [N, in_dim] in plain
-    PyTorch: the kernel's arithmetic in matmul form (bf16 storage = operands
-    rounded to bf16, products accumulated in f32)."""
+def _forward_plain(pk: PackedDecoder, x: torch.Tensor,
+                   masks: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Forward chain on rows x [N, in_dim] in plain PyTorch: the kernels'
+    arithmetic in matmul form (bf16 storage = operands rounded to bf16,
+    products accumulated in f32). Appends each layer's ReLU signs to
+    `masks` if given. Returns the tanh sdf [N]."""
     bf16, D, li, k = pk.bf16, pk.D, pk.li, pk.in_dim
     w = lambda t: t.float()
     xr = _round(x, bf16)
@@ -132,17 +141,28 @@ def _chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torc
         return torch.cat([h[:, : D - k], xr], dim=1)
 
     h = torch.relu(xr @ w(pk.w0) + pk.b0)
-    masks = [h > 0]
+    if masks is not None:
+        masks.append(h > 0)
     h = _round(h, bf16)
     for j in range(pk.n_mid):
         if j + 1 == li:
             h = skip(h)
         h = torch.relu(h @ w(pk.wm[j]) + pk.bm[j])
-        masks.append(h > 0)
+        if masks is not None:
+            masks.append(h > 0)
         h = _round(h, bf16)
     if pk.n_mid + 1 == li:
         h = skip(h)
-    y = torch.tanh(h @ w(pk.wl) + pk.bl)
+    return torch.tanh(h @ w(pk.wl) + pk.bl)
+
+
+def _chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward and input-gradient chain on rows x [N, in_dim] in plain
+    PyTorch, with the roundings of `_forward_plain`."""
+    bf16, D, li, k = pk.bf16, pk.D, pk.li, pk.in_dim
+    w = lambda t: t.float()
+    masks: List[torch.Tensor] = []
+    y = _forward_plain(pk, x, masks)
 
     g = _round(1.0 - y * y, bf16)[:, None] * w(pk.wl)[None, :]
     gx = torch.zeros_like(x)
@@ -165,6 +185,23 @@ def chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
+def forward_plain(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
+    """`_forward_plain` in passes of PLAIN_ROWS rows. x [N, in_dim] f32 ->
+    sdf [N]."""
+    if x.shape[0] <= PLAIN_ROWS:
+        return _forward_plain(pk, x)
+    return torch.cat([_forward_plain(pk, x[i:i + PLAIN_ROWS])
+                      for i in range(0, x.shape[0], PLAIN_ROWS)])
+
+
+def shared_latent_plain(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Plain forward of every point under every code: latents [B, C],
+    pts [N, 3] -> sdf [B, N], one code at a time."""
+    N, C = pts.shape[0], latents.shape[1]
+    return torch.stack([forward_plain(pk, torch.cat([lat.expand(N, C), pts], dim=1))
+                        for lat in latents])
+
+
 def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
     for name in WEIGHT_NAMES:
         t = getattr(pk, name)
@@ -174,22 +211,34 @@ def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
         raise TypeError(f"inputs must be float32, got {x.dtype}")
 
 
-_argtypes_set = False
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_WEIGHTS = [_P] * len(WEIGHT_NAMES) + [ctypes.c_float]   # w0 .. bm, bl
+# C entry and argument types of each kernel library
+_ENTRIES = {
+    # x, n_rows, in_dim, D, n_mid, li, bf16, weights, sdf, grad, stream
+    "mlp_fwd_grad": ("horti_mlp_fwd_grad", [_P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P, _P]),
+    # x, n_rows, in_dim, D, n_mid, li, bf16, weights, sdf, stream
+    "mlp_fwd": ("horti_mlp_fwd", [_P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P]),
+    # latents, n_codes, pts, n_pts, in_dim, D, n_mid, li, bf16, weights, out, stream
+    "mlp_shared_latent": ("horti_mlp_shared_latent",
+                          [_P, _I, _P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P]),
+}
+_bound: set = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _argtypes_set
-    lib = cuda_build.load("mlp_fwd_grad")
-    if not _argtypes_set:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.horti_mlp_fwd_grad.restype = i
-        lib.horti_mlp_fwd_grad.argtypes = [
-            p, i, i, i, i, i, i,          # x, n_rows, in_dim, D, n_mid, li, bf16
-            p, p, p, p, p, p, p, p,       # w0, w0t, w0tk, wm, wmt, wl, b0, bm
-            ctypes.c_float, p, p, p,      # bl, sdf, grad, stream
-        ]
-        _argtypes_set = True
-    return lib
+def _entry(name: str):
+    """The C entry of kernel library `name` (built at first use), with its
+    argument types declared."""
+    fn_name, argtypes = _ENTRIES[name]
+    fn = getattr(cuda_build.load(name), fn_name)
+    if name not in _bound:
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        _bound.add(name)
+    return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -198,13 +247,45 @@ def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, to
     n = x.shape[0]
     sdf = torch.empty(n, dtype=torch.float32, device=x.device)
     grad = torch.empty(n, pk.in_dim, dtype=torch.float32, device=x.device)
-    rc = _lib().horti_mlp_fwd_grad(
+    rc = _entry("mlp_fwd_grad")(
         x.data_ptr(), n, pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        *pk.weight_ptrs(), pk.bl, sdf.data_ptr(), grad.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        *pk.weight_ptrs(), pk.bl, sdf.data_ptr(), grad.data_ptr(), _stream(x),
     )
     cuda_build.check(rc, "horti_mlp_fwd_grad")
     launches += 1
     return sdf, grad
+
+
+def _fwd_cuda(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
+    global launches_fwd
+    _check_packed(pk, x)
+    n = x.shape[0]
+    sdf = torch.empty(n, dtype=torch.float32, device=x.device)
+    rc = _entry("mlp_fwd")(
+        x.data_ptr(), n, pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16),
+        *pk.weight_ptrs(), pk.bl, sdf.data_ptr(), _stream(x),
+    )
+    cuda_build.check(rc, "horti_mlp_fwd")
+    launches_fwd += 1
+    return sdf
+
+
+def _shared_latent_cuda(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    global launches_shared_latent
+    _check_packed(pk, pts)
+    if latents.device != pts.device:
+        raise ValueError("latents and pts must lie on one device")
+    B, N = latents.shape[0], pts.shape[0]
+    if B > MAX_CODES:
+        raise ValueError(f"at most {MAX_CODES} codes a launch, got {B}")
+    out = torch.empty(B, N, dtype=torch.float32, device=pts.device)
+    rc = _entry("mlp_shared_latent")(
+        latents.data_ptr(), B, pts.data_ptr(), N, pk.in_dim, pk.D, pk.n_mid, pk.li,
+        int(pk.bf16), *pk.weight_ptrs(), pk.bl, out.data_ptr(), _stream(pts),
+    )
+    cuda_build.check(rc, "horti_mlp_shared_latent")
+    launches_shared_latent += 1
+    return out
 
 
 def _flatten(pk: PackedDecoder, inputs: torch.Tensor):
@@ -228,3 +309,69 @@ def mlp_sdf_and_input_grad_plain(pk: PackedDecoder, inputs: torch.Tensor) -> Tup
     x, lead = _flatten(pk, inputs)
     sdf, grad = chain_plain(pk, x)
     return sdf.reshape(lead), grad.reshape(lead + (pk.in_dim,))
+
+
+def mlp_sdf(pk: PackedDecoder, inputs: torch.Tensor) -> torch.Tensor:
+    """(..., C+3) -> tanh sdf (...). CUDA tensors go to the forward kernel
+    (B3); CPU tensors to the plain version."""
+    x, lead = _flatten(pk, inputs)
+    sdf = _fwd_cuda(pk, x) if x.is_cuda else forward_plain(pk, x)
+    return sdf.reshape(lead)
+
+
+def mlp_sdf_plain(pk: PackedDecoder, inputs: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `mlp_sdf`, on any device."""
+    x, lead = _flatten(pk, inputs)
+    return forward_plain(pk, x).reshape(lead)
+
+
+def _shared_inputs(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Tensor):
+    if latents.dim() != 2 or latents.shape[1] + 3 != pk.in_dim:
+        raise ValueError(f"latents must be [B, {pk.in_dim - 3}], got {tuple(latents.shape)}")
+    if pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts must be [N, 3], got {tuple(pts.shape)}")
+    return latents.float().contiguous(), pts.float().contiguous()
+
+
+def mlp_sdf_shared_latent(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """latents [B, C], pts [N, 3] -> tanh sdf [B, N] of every point under
+    every code. CUDA tensors go to the shared-latent kernel (B4), one launch
+    for all B codes; CPU tensors to the plain version."""
+    latents, pts = _shared_inputs(pk, latents, pts)
+    if pts.is_cuda:
+        return _shared_latent_cuda(pk, latents, pts)
+    return shared_latent_plain(pk, latents, pts)
+
+
+def mlp_sdf_shared_latent_plain(pk: PackedDecoder, latents: torch.Tensor,
+                                pts: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `mlp_sdf_shared_latent`, on any device."""
+    return shared_latent_plain(pk, *_shared_inputs(pk, latents, pts))
+
+
+class KernelDecoder:
+    """Packed weights for the kernels (counterpart of `PallasDecoder`):
+    `sdf` through the forward kernel in the storage type `bf16` picks,
+    `sdf_and_input_grad` through the fwd+input-grad kernel in f32 (its f32
+    weights are packed on its first call when `sdf` stores bf16)."""
+
+    def __init__(self, params: Params, spec: DecoderSpec, bf16: bool = True):
+        if not supported(spec):
+            raise ValueError(f"architecture not kernel-supported: {spec}")
+        self.spec = spec
+        self.bf16 = bf16
+        self._params = params
+        self.packed = pack_params(params, spec, torch.bfloat16 if bf16 else torch.float32)
+        self._packed_f32 = None if bf16 else self.packed
+
+    @property
+    def packed_f32(self) -> PackedDecoder:
+        if self._packed_f32 is None:
+            self._packed_f32 = pack_params(self._params, self.spec, torch.float32)
+        return self._packed_f32
+
+    def sdf(self, inputs: torch.Tensor) -> torch.Tensor:
+        return mlp_sdf(self.packed, inputs)
+
+    def sdf_and_input_grad(self, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return mlp_sdf_and_input_grad(self.packed_f32, inputs)

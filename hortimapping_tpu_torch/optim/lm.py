@@ -1,10 +1,12 @@
 """Batched Levenberg-Marquardt joint shape + pose optimization.
 
-Counterpart of `hortimapping_tpu/optim/lm.py` for the fixed-lambda solver
-and the two-resolution schedule. The JAX `vmap` over fruits is the leading
-[B] axis of every tensor; its `lax.while_loop` with frozen lanes is a Python
-loop that steps every lane until all are done or failed (one host sync per
-iteration, for that test). Frozen lanes keep their state bit for bit.
+Counterpart of `hortimapping_tpu/optim/lm.py`: the fixed-lambda solver, the
+adaptive trust-region solver (`trust_region`), the two-resolution schedule,
+the code-frozen pose polish, the staged solve and the chunked solve. The JAX
+`vmap` over fruits is the leading [B] axis of every tensor; its
+`lax.while_loop` with frozen lanes is a Python loop that steps every lane
+until all are done or failed (one host sync per iteration, for that test).
+Frozen lanes keep their state bit for bit.
 
 The render term runs through the fused render kernel and the SDF term
 through the fwd+input-grad kernel wherever the decoder is kernel-supported;
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,25 +31,31 @@ from hortimapping_tpu_torch.ops.recon import sdf_residuals
 from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals
 from hortimapping_tpu_torch.ops.robust import huber_weights
 from hortimapping_tpu_torch.optim.state import FruitObservations, OptResult, OptState, init_state
+from hortimapping_tpu_torch.parallel.sharding import pad_to_multiple
 
 
 @dataclasses.dataclass(frozen=True)
 class Packs:
     """Decoder weights packed once per solve: for the render route (bf16 or
-    f32 per `fused_bf16`) and for the SDF term (f32)."""
+    f32 per `fused_bf16`), for the SDF term (f32) and, where the solve
+    retrieves codes, for retrieval scoring (per `retrieval_score_bf16`)."""
 
     render: Optional[mlp_kernels.PackedDecoder]
     sdf: Optional[mlp_kernels.PackedDecoder]
+    score: Optional[mlp_kernels.KernelDecoder] = None
 
 
-def make_packs(params: Params, spec: DecoderSpec, cfg: JointOptConfig) -> Packs:
+def make_packs(params: Params, spec: DecoderSpec, cfg: JointOptConfig,
+               score: bool = False) -> Packs:
     if not mlp_kernels.supported(spec):
         return Packs(None, None)
     f32 = mlp_kernels.pack_params(params, spec, torch.float32)
     sdf = f32 if cfg.pallas_resolved(spec) else None
+    scorer = (mlp_kernels.KernelDecoder(params, spec, bf16=cfg.retrieval_score_bf16)
+              if score else None)
     if cfg.fused_resolved(spec) and cfg.fused_bf16:
-        return Packs(mlp_kernels.pack_params(params, spec, torch.bfloat16), sdf)
-    return Packs(f32, sdf)
+        return Packs(mlp_kernels.pack_params(params, spec, torch.bfloat16), sdf, scorer)
+    return Packs(f32, sdf, scorer)
 
 
 def _render_config(cfg: JointOptConfig, spec: DecoderSpec) -> RenderConfig:
@@ -178,11 +186,16 @@ def _assemble_normal_equations(
     return H, b, failed, cost
 
 
-def apply_lm_damping(H: torch.Tensor, cfg: JointOptConfig, lam: Optional[float] = None) -> torch.Tensor:
-    """lambda * diag(H) added to H, or lambda * max(diag(H)) * I with `lm_eye`."""
+def apply_lm_damping(H: torch.Tensor, cfg: JointOptConfig,
+                     lam: Optional[float | torch.Tensor] = None) -> torch.Tensor:
+    """lambda * diag(H) added to H, or lambda * max(diag(H)) * I with `lm_eye`.
+    `lam` defaults to the fixed lambda_0; the trust-region solver passes one
+    per lane ([B])."""
     if not cfg.lm_on:
         return H
     lam = cfg.lm_lambda_0 if lam is None else lam
+    if isinstance(lam, torch.Tensor):
+        lam = lam[:, None, None]
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
     if cfg.lm_eye:
         eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
@@ -198,10 +211,46 @@ def normal_equations(params, spec, cfg, obs, latent, T_ow, i, cube_radius,
     return apply_lm_damping(H, cfg), b, failed
 
 
+def _convergence(cfg: JointOptConfig, i, b, delta_T, delta_c, latent_new, T_new,
+                 pose_known: bool, code_known: bool):
+    """The gradient, code and pose convergence tests of an LM step [B]."""
+    scale_new = torch.linalg.det(T_new[:, :3, :3]) ** (-1.0 / 3.0)
+    delta_scale = torch.linalg.det(delta_T[:, :3, :3]) ** (1.0 / 3.0)
+    delta_tran = torch.linalg.norm(delta_T[:, :3, 3], dim=-1) * scale_new
+    delta_rot = rotation_matrix_to_angle(delta_T[:, :3, :3] * scale_new[:, None, None]) * 180.0 / math.pi
+
+    past_warmup = i > 1
+    conv_g = (b.abs().max(-1).values < cfg.epsilon_g) & past_warmup
+    conv_c = ((delta_c / (latent_new + 1e-12)).abs().max(-1).values < cfg.epsilon_c) & past_warmup
+    if code_known:
+        # with the code frozen delta_c == 0 passes this test trivially; the
+        # polish runs on the pose tests and its iteration budget only
+        conv_c = torch.zeros_like(conv_c)
+    # the reference compares delta_scale (a ratio ~= 1) with epsilon_s, so
+    # this pose test never fires; kept literally for iteration-count parity
+    conv_p = ((delta_tran < cfg.epsilon_t) & (delta_rot < cfg.epsilon_r)
+              & (delta_scale < cfg.epsilon_s) & past_warmup)
+    if pose_known:
+        conv_p = torch.zeros_like(conv_p)
+    return conv_g, conv_c, conv_p
+
+
+def _manifold_step(cfg: JointOptConfig, delta: torch.Tensor, latent: torch.Tensor,
+                   T_ow: torch.Tensor):
+    """(delta_T, delta_c, latent_new, T_new) of the step delta [B, D]."""
+    pose_dim = cfg.pose_dim
+    delta_p = delta[:, :pose_dim]
+    delta_c = delta[:, pose_dim:]
+    delta_T = exp_sim3_ref(delta_p) if cfg.scale_on else exp_se3(delta_p)
+    return delta_T, delta_c, latent + delta_c, delta_T @ T_ow
+
+
 def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
-                 pose_known: bool, packs: Optional[Packs] = None) -> OptState:
+                 pose_known: bool, packs: Optional[Packs] = None,
+                 code_known: bool = False) -> OptState:
     """One LM iteration for every lane (frozen lanes are restored by
-    `_freeze_if_done`)."""
+    `_freeze_if_done`). `code_known` zeroes the code block of the step, so
+    only the pose moves (the pose polish)."""
     pose_dim = cfg.pose_dim
     i = state.i
     latent, T_ow = state.latent, state.T_ow
@@ -212,29 +261,15 @@ def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
     # solve_ex: a singular H (a lane with nothing observed) gives inf/nan
     # like jnp.linalg.solve instead of raising; such lanes are `failed`
     delta = torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
-    if pose_known:
+    if pose_known or code_known:
         delta = delta.clone()
-        delta[:, :6] = 0.0
-    delta_p = delta[:, :pose_dim]
-    delta_c = delta[:, pose_dim:]
-    delta_T = exp_sim3_ref(delta_p) if cfg.scale_on else exp_se3(delta_p)
-    T_new = delta_T @ T_ow
-    latent_new = latent + delta_c
-
-    scale_new = torch.linalg.det(T_new[:, :3, :3]) ** (-1.0 / 3.0)
-    delta_scale = torch.linalg.det(delta_T[:, :3, :3]) ** (1.0 / 3.0)
-    delta_tran = torch.linalg.norm(delta_T[:, :3, 3], dim=-1) * scale_new
-    delta_rot = rotation_matrix_to_angle(delta_T[:, :3, :3] * scale_new[:, None, None]) * 180.0 / math.pi
-
-    past_warmup = i > 1
-    conv_g = (b.abs().max(-1).values < cfg.epsilon_g) & past_warmup
-    conv_c = ((delta_c / (latent_new + 1e-12)).abs().max(-1).values < cfg.epsilon_c) & past_warmup
-    # the reference compares delta_scale (a ratio ~= 1) with epsilon_s, so
-    # this pose test never fires; kept literally for iteration-count parity
-    conv_p = ((delta_tran < cfg.epsilon_t) & (delta_rot < cfg.epsilon_r)
-              & (delta_scale < cfg.epsilon_s) & past_warmup)
     if pose_known:
-        conv_p = torch.zeros_like(conv_p)
+        delta[:, :6] = 0.0
+    if code_known:
+        delta[:, pose_dim:] = 0.0
+    delta_T, delta_c, latent_new, T_new = _manifold_step(cfg, delta, latent, T_ow)
+    conv_g, conv_c, conv_p = _convergence(cfg, i, b, delta_T, delta_c, latent_new, T_new,
+                                          pose_known, code_known)
     conv = conv_g | conv_c | conv_p
     done = conv | (i >= cfg.max_iter - 1)
 
@@ -252,22 +287,174 @@ def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
     )
 
 
+def _where_lanes(mask: torch.Tensor, a, b):
+    """Per lane: a where `mask` [B], else b, through nested NamedTuples of
+    tensors with a leading lane axis."""
+    if isinstance(a, tuple):
+        return type(a)(*(_where_lanes(mask, x, y) for x, y in zip(a, b)))
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
 def _freeze_if_done(old: OptState, new: OptState) -> OptState:
     """Lanes already done or failed keep their state bit for bit."""
-    frozen = old.done | old.failed
-    out = []
-    for o, n in zip(old, new):
-        f = frozen.reshape(frozen.shape + (1,) * (o.dim() - 1))
-        out.append(torch.where(f, o, n))
-    return OptState(*out)
+    return _where_lanes(old.done | old.failed, old, new)
 
 
-def _solve_batched(params, spec, cfg, obs, s0: OptState, cube_radius, pose_known, packs):
+class TrState(NamedTuple):
+    """Carry of the adaptive trust-region solver (`trust_region`): the
+    fixed-lambda carry plus, per lane, the damping lambda and the last
+    ACCEPTED linearization point (its state, undamped normal equations and
+    objective). A rejected step re-solves from the stored (H, b) with a
+    larger lambda, without a new assembly."""
+
+    base: OptState
+    lam: torch.Tensor          # [B] current damping
+    cost: torch.Tensor         # [B] objective at the last accepted state
+    acc_latent: torch.Tensor   # [B, C] last accepted latent
+    acc_T_ow: torch.Tensor     # [B, 4, 4] last accepted pose
+    H_acc: torch.Tensor        # [B, D, D] undamped H at the accepted state
+    b_acc: torch.Tensor        # [B, D]
+    nu: torch.Tensor           # [B] Nielsen rejection growth factor
+    pred: torch.Tensor         # [B] predicted reduction of the in-flight step
+    flat: torch.Tensor         # [B] int32 consecutive flat accepted steps
+
+
+def init_tr_state(latent: torch.Tensor, T_ow: torch.Tensor, cfg: JointOptConfig,
+                  i0: int = 0) -> TrState:
+    B, C = latent.shape
+    D = cfg.pose_dim + C
+    f32, dev = torch.float32, latent.device
+    return TrState(
+        base=init_state(latent, T_ow, i0),
+        lam=torch.full((B,), cfg.lm_lambda_0, dtype=f32, device=dev),
+        cost=torch.full((B,), math.inf, dtype=f32, device=dev),   # the first assembly accepts
+        acc_latent=latent,
+        acc_T_ow=T_ow,
+        H_acc=torch.zeros(B, D, D, dtype=f32, device=dev),
+        b_acc=torch.zeros(B, D, dtype=f32, device=dev),
+        nu=torch.full((B,), 2.0, dtype=f32, device=dev),
+        pred=torch.ones(B, dtype=f32, device=dev),
+        flat=torch.zeros(B, dtype=torch.int32, device=dev),
+    )
+
+
+def lm_iteration_tr(params, spec, cfg, obs, ts: TrState, cube_radius: float,
+                    pose_known: bool, packs: Optional[Packs] = None) -> TrState:
+    """One adaptive-damping LM iteration for every lane: the residuals,
+    Jacobians, weights and convergence tests of `lm_iteration`, with each
+    lane's lambda adapted by deferred step acceptance and Nielsen's
+    gain-ratio rule. The assembly at iteration k prices the step taken at
+    k-1 against its predicted reduction: a good step shrinks lambda by
+    max(1/3, 1 - (2 rho - 1)^3); a bad one rolls back to the stored accepted
+    state and retries from its (H, b) with lambda * nu (nu doubling on
+    consecutive rejections)."""
+    s = ts.base
+    i = s.i
+    lane_active = ~(s.done | s.failed)
+    H, b, failed, cost = _assemble_normal_equations(
+        params, spec, cfg, obs, s.latent, s.T_ow, i, cube_radius, lane_active, packs)
+
+    # at i == robust_iter the new cost carries Huber weights and the stored
+    # one does not: accept the step (unless non-finite) but adapt no damping
+    crossed = (i == cfg.robust_iter) if cfg.robust_iter > 0 else torch.zeros_like(failed)
+    accept = (cost <= ts.cost) | (crossed & torch.isfinite(cost))
+    # where, not a blend: a NaN trial state must roll back cleanly
+    H_use = torch.where(accept[:, None, None], H, ts.H_acc)
+    b_use = torch.where(accept[:, None], b, ts.b_acc)
+    lat_use = torch.where(accept[:, None], s.latent, ts.acc_latent)
+    T_use = torch.where(accept[:, None, None], s.T_ow, ts.acc_T_ow)
+    cost_use = torch.where(accept, cost, ts.cost)
+    # Nielsen gain ratio: actual vs predicted reduction of the priced step
+    rho = (ts.cost - cost) / torch.clamp(ts.pred, min=1e-30)
+    rho = torch.where(torch.isfinite(rho), rho, torch.ones_like(rho))   # i=0: inf improvement
+    shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam = torch.where(accept, torch.clamp(ts.lam * shrink, min=cfg.tr_lambda_min),
+                      torch.clamp(ts.lam * ts.nu, max=cfg.tr_lambda_max))
+    nu = torch.where(accept, torch.full_like(ts.nu, 2.0), torch.clamp(ts.nu * 2.0, max=128.0))
+    lam = torch.where(crossed & accept, ts.lam, lam)
+    nu = torch.where(crossed & accept, ts.nu, nu)
+
+    Hd = apply_lm_damping(H_use, cfg, lam)
+    delta = torch.linalg.solve_ex(Hd, b_use[..., None])[0][..., 0]
+    if pose_known:
+        # zero the pose step before pricing it: pred must value the step taken
+        delta = delta.clone()
+        delta[:, :6] = 0.0
+    # predicted reduction L(0) - L(delta) = delta^T (b + lambda D delta)
+    pred = torch.clamp((delta * (b_use + ((Hd - H_use) @ delta[..., None])[..., 0])).sum(-1),
+                       min=1e-30)
+    delta_T, delta_c, latent_new, T_new = _manifold_step(cfg, delta, lat_use, T_use)
+    conv_g, conv_c, conv_p = _convergence(cfg, i, b_use, delta_T, delta_c, latent_new, T_new,
+                                          pose_known, False)
+    # objective-driven stop: two consecutive accepted steps whose
+    # improvement flattened (never the inf sentinel, never the robust
+    # boundary's reweighting)
+    is_flat = (accept & torch.isfinite(ts.cost) & ~crossed
+               & ((ts.cost - cost) <= cfg.tr_cost_rtol * ts.cost))
+    flat = torch.where(is_flat, ts.flat + 1, torch.where(accept, torch.zeros_like(ts.flat), ts.flat))
+    conv_f = (flat >= 2) & (i > 1)
+    conv = (conv_g | conv_c | conv_p | conv_f) & accept
+    done = conv | (i >= cfg.max_iter - 1)
+
+    new_ts = TrState(
+        OptState(latent=latent_new, T_ow=T_new, i=i + 1, iter_count=i + 1, done=done,
+                 failed=torch.zeros_like(failed), converged=conv),
+        lam, cost_use, lat_use, T_use, H_use, b_use, nu, pred, flat,
+    )
+    # failed lanes keep the last ACCEPTED estimate and terminate
+    fail_ts = ts._replace(base=s._replace(latent=ts.acc_latent, T_ow=ts.acc_T_ow,
+                                          done=torch.ones_like(failed),
+                                          failed=torch.ones_like(failed)))
+    return _where_lanes(failed, fail_ts, new_ts)
+
+
+def _freeze_if_done_tr(old: TrState, new: TrState) -> TrState:
+    return _where_lanes(old.base.done | old.base.failed, old, new)
+
+
+def _tr_result(final: TrState) -> OptResult:
+    """Each lane's reported state: the final trial step where the lane left
+    through a convergence test, else the last accepted state (a max-iter or
+    failed lane's trial was never shown to improve the objective)."""
+    take = final.base.converged
+    return OptResult(
+        torch.where(take[:, None], final.base.latent, final.acc_latent),
+        torch.where(take[:, None, None], final.base.T_ow, final.acc_T_ow),
+        final.base.iter_count, final.base.failed, final.base.converged,
+    )
+
+
+def _solve_batched(params, spec, cfg, obs, s0: OptState, cube_radius, pose_known, packs,
+                   code_known: bool = False):
     s = s0
     while bool((~(s.done | s.failed)).any()):
-        new = lm_iteration(params, spec, cfg, obs, s, cube_radius, pose_known, packs)
+        new = lm_iteration(params, spec, cfg, obs, s, cube_radius, pose_known, packs, code_known)
         s = _freeze_if_done(s, new)
     return OptResult(s.latent, s.T_ow, s.iter_count, s.failed, s.converged)
+
+
+def _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs):
+    ts = init_tr_state(latent0, T_ow0, cfg)
+    while bool((~(ts.base.done | ts.base.failed)).any()):
+        ts = _freeze_if_done_tr(ts, lm_iteration_tr(params, spec, cfg, obs, ts, cube_radius,
+                                                    pose_known, packs))
+    return _tr_result(ts)
+
+
+def _solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs) -> OptResult:
+    """The configured single-phase solver: trust region or fixed lambda."""
+    if cfg.trust_region:
+        return _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs)
+    return _solve_batched(params, spec, cfg, obs, init_state(latent0, T_ow0), cube_radius,
+                          pose_known, packs)
+
+
+def _prepare(device, cfg: JointOptConfig, obs: FruitObservations, *tensors: torch.Tensor):
+    """Entry-point set-up: the device (CUDA unless asked for the CPU), the
+    port check of the config, and the batch moved onto the device."""
+    dev = resolve_device(device)
+    cfg.check_ported()
+    return (dev, FruitObservations(*(t.to(dev) for t in obs)), *(t.to(dev) for t in tensors))
 
 
 def shape_pose_joint_opt_batched(
@@ -283,15 +470,56 @@ def shape_pose_joint_opt_batched(
     packs: Optional[Packs] = None,
 ) -> OptResult:
     """All fruits of a submap in one batched LM solve; converged lanes
-    freeze and the loop ends when the slowest lane finishes."""
-    dev = resolve_device(device)
-    cfg.check_ported()
-    obs = FruitObservations(*(t.to(dev) for t in obs))
-    latent0, T_ow0 = latent0.to(dev), T_ow0.to(dev)
+    freeze and the loop ends when the slowest lane finishes. With
+    `cfg.trust_region` each lane carries its own adaptive lambda."""
+    _, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
     if packs is None:
         packs = make_packs(params, spec, cfg)
-    return _solve_batched(params, spec, cfg, obs, init_state(latent0, T_ow0), cube_radius,
-                          pose_known, packs)
+    return _solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs)
+
+
+def pose_polish_batched(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,
+    res: OptResult,
+    cube_radius: float,
+    device: str | torch.device = "cuda",
+    packs: Optional[Packs] = None,
+) -> OptResult:
+    """Code-frozen pose polish: up to `cfg.pose_polish_iters` more LM
+    iterations from the joint solution with the code block of every step
+    zeroed. Lanes that failed the main solve do not polish; `iter_count`
+    bills main + polish iterations; `failed` and `converged` stay the main
+    solve's verdict."""
+    _, obs, *fields = _prepare(device, cfg, obs, *res)
+    res = OptResult(*fields)
+    if packs is None:
+        packs = make_packs(params, spec, cfg)
+    polish_cfg = dataclasses.replace(cfg, max_iter=cfg.pose_polish_iters)
+    s0 = init_state(res.latent, res.T_ow)._replace(done=res.failed, failed=res.failed)
+    final = _solve_batched(params, spec, polish_cfg, obs, s0, cube_radius, False, packs,
+                           code_known=True)
+    return OptResult(res.latent, final.T_ow, res.iter_count + final.iter_count, res.failed,
+                     res.converged)
+
+
+def maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known=False,
+                      device: str | torch.device = "cuda", packs: Optional[Packs] = None):
+    """The configured pose polish (`pose_polish_iters` > 0); a no-op under
+    `pose_known`, where there is no pose to polish."""
+    if cfg.pose_polish_iters > 0 and not pose_known:
+        return pose_polish_batched(params, spec, cfg, obs, res, cube_radius, device, packs)
+    return res
+
+
+def _continue_joint_opt_batched(params, spec, cfg, obs, latent0, T_ow0, cube_radius,
+                                pose_known, start_iter: int, packs) -> OptResult:
+    """Fixed-lambda batched solve starting from iteration `start_iter`
+    (the staged solver's second stage)."""
+    return _solve_batched(params, spec, cfg, obs, init_state(latent0, T_ow0, start_iter),
+                          cube_radius, pose_known, packs)
 
 
 def _subsample(obs: FruitObservations, cfg: JointOptConfig, stride: int, ray_frac: float,
@@ -352,15 +580,12 @@ def coarse_to_fine_joint_opt(
     """Two-resolution batched solve: phase A on the subsampled problem,
     phase B (optionally subsampled too) from its result with the Huber
     kernel on from its first iteration. `iter_count` bills both phases."""
-    dev = resolve_device(device)
-    cfg.check_ported()
-    obs = FruitObservations(*(t.to(dev) for t in obs))
-    latent0, T_ow0 = latent0.to(dev), T_ow0.to(dev)
+    _, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
     if packs is None:
         packs = make_packs(params, spec, cfg)
     coarse_obs, coarse_cfg = subsample_observations(obs, cfg)
-    r_a = _solve_batched(params, spec, coarse_cfg, coarse_obs, init_state(latent0, T_ow0),
-                         cube_radius, pose_known, packs)
+    r_a = _solve(params, spec, coarse_cfg, coarse_obs, latent0, T_ow0, cube_radius, pose_known,
+                 packs)
     fine_obs, fine_cfg = obs, cfg
     if (cfg.fine_frame_stride > 1 or cfg.fine_ray_frac < 1.0
             or cfg.fine_sample_frac < 1.0 or cfg.fine_pts_frac < 1.0):
@@ -374,9 +599,94 @@ def coarse_to_fine_joint_opt(
     ff = r_a.failed.to(torch.float32)[:, None]
     lat1 = (1.0 - ff) * r_a.latent + ff * latent0
     T1 = (1.0 - ff[..., None]) * r_a.T_ow + ff[..., None] * T_ow0
-    r_b = _solve_batched(params, spec, fine_cfg, fine_obs, init_state(lat1, T1),
-                         cube_radius, pose_known, packs)
+    r_b = _solve(params, spec, fine_cfg, fine_obs, lat1, T1, cube_radius, pose_known, packs)
     return r_b._replace(iter_count=r_a.iter_count + r_b.iter_count)
+
+
+def staged_joint_opt(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,
+    latent0: torch.Tensor,
+    T_ow0: torch.Tensor,
+    cube_radius: float,
+    pose_known: bool = False,
+    stage1_iters: Optional[int] = None,
+    device: str | torch.device = "cuda",
+    packs: Optional[Packs] = None,
+) -> OptResult:
+    """Two-stage batched solve: every lane runs `stage1_iters` iterations,
+    then only the lanes that neither converged nor failed continue (gathered
+    on the device; only the per-lane flags reach the host). Per-lane math is
+    that of the single-stage solver."""
+    _, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
+    if packs is None:
+        packs = make_packs(params, spec, cfg)
+    B = latent0.shape[0]
+    m1 = stage1_iters if stage1_iters is not None else max(cfg.max_iter // 2, 1)
+    if m1 >= cfg.max_iter or B <= 1:
+        return _solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs)
+    r1 = _solve(params, spec, dataclasses.replace(cfg, max_iter=m1), obs, latent0, T_ow0,
+                cube_radius, pose_known, packs)
+    idx = torch.nonzero(~(r1.converged | r1.failed)).reshape(-1)
+    if idx.numel() == 0:
+        return r1
+    obs2 = FruitObservations(*(a[idx] for a in obs))
+    r2 = _continue_joint_opt_batched(params, spec, cfg, obs2, r1.latent[idx], r1.T_ow[idx],
+                                     cube_radius, pose_known, m1, packs)
+
+    def merge(a1, a2):
+        out = a1.clone()
+        out[idx] = a2
+        return out
+
+    return OptResult(*(merge(a1, a2) for a1, a2 in zip(r1, r2)))
+
+
+def solve_in_chunks(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,
+    latent0: torch.Tensor,
+    T_ow0: torch.Tensor,
+    cube_radius: float,
+    pose_known: bool = False,
+    max_batch: Optional[int] = None,
+    device: str | torch.device = "cuda",
+    packs: Optional[Packs] = None,
+) -> OptResult:
+    """The configured solver (coarse-to-fine or single phase, then the pose
+    polish) in chunks of at most `max_batch` fruits: 64 with the fused
+    render kernel (no dense activations), 16 on the dense render path. The
+    last chunk is padded to `max_batch` with invalid lanes that fail at
+    their first iteration, the lane semantics of the JAX package's padded
+    chunk."""
+    _, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
+    if packs is None:
+        packs = make_packs(params, spec, cfg)
+    if max_batch is None:
+        max_batch = 64 if cfg.fused_resolved(spec) else 16
+    base = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
+
+    def solver(o, lat, T):
+        res = base(params, spec, cfg, o, lat, T, cube_radius, pose_known, lat.device, packs)
+        return maybe_pose_polish(params, spec, cfg, o, res, cube_radius, pose_known,
+                                 lat.device, packs)
+
+    B = latent0.shape[0]
+    if B <= max_batch:
+        return solver(obs, latent0, T_ow0)
+    outs = []
+    for lo in range(0, B, max_batch):
+        hi = min(lo + max_batch, B)
+        obs_c = FruitObservations(*(a[lo:hi] for a in obs))
+        lat_c, T_c = latent0[lo:hi], T_ow0[lo:hi]
+        if hi - lo < max_batch:
+            obs_c, lat_c, T_c, _ = pad_to_multiple(obs_c, lat_c, T_c, max_batch)
+        outs.append(OptResult(*(a[: hi - lo] for a in solver(obs_c, lat_c, T_c))))
+    return OptResult(*(torch.cat(xs) for xs in zip(*outs)))
 
 
 def pack_result(res: OptResult) -> torch.Tensor:

@@ -78,6 +78,58 @@ def test_mlp_kernel_matches_plain(cuda, name, dtype):
             assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_fwd_kernel_matches_plain(cuda, name, dtype):
+    """B3 (forward alone) on rows that fill no whole chunk."""
+    params, spec = _decoder(name, 9, cuda)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor((rng.normal(size=(1037, spec.in_dim)) * 0.1).astype(np.float32)).to(cuda)
+    pk = mlp_kernels.pack_params(params, spec, torch.float32 if dtype == "f32" else torch.bfloat16)
+    before = mlp_kernels.launches_fwd
+    got = mlp_kernels.mlp_sdf(pk, x)
+    want = mlp_kernels.mlp_sdf_plain(pk, x)
+    torch.cuda.synchronize()
+    assert mlp_kernels.launches_fwd == before + 1
+    assert bool(torch.isfinite(got).all())
+    err = _rel(got, want)
+    if dtype == "f32":
+        assert float(err.max()) <= 1e-5
+    else:
+        assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+    # the forward of B1 is the same chain
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  mlp_kernels.mlp_sdf_and_input_grad(pk, x)[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_shared_latent_kernel_matches_plain(cuda, name, dtype):
+    """B4: 3 codes x 999 points in one launch, each equal to B3 on the
+    materialised [code | xyz] rows."""
+    params, spec = _decoder(name, 5, cuda)
+    rng = np.random.default_rng(3)
+    lat = torch.as_tensor((rng.normal(size=(3, spec.code_length)) * 0.1).astype(np.float32)).to(cuda)
+    pts = torch.as_tensor((rng.normal(size=(999, 3)) * 0.05).astype(np.float32)).to(cuda)
+    pk = mlp_kernels.pack_params(params, spec, torch.float32 if dtype == "f32" else torch.bfloat16)
+    before = mlp_kernels.launches_shared_latent
+    got = mlp_kernels.mlp_sdf_shared_latent(pk, lat, pts)
+    want = mlp_kernels.mlp_sdf_shared_latent_plain(pk, lat, pts)
+    torch.cuda.synchronize()
+    assert mlp_kernels.launches_shared_latent == before + 1
+    assert got.shape == (3, 999) and bool(torch.isfinite(got).all())
+    err = _rel(got, want)
+    if dtype == "f32":
+        assert float(err.max()) <= 1e-5
+    else:
+        assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+    rows = torch.cat([lat[:, None, :].expand(3, 999, spec.code_length),
+                      pts.expand(3, 999, 3)], dim=-1)
+    np.testing.assert_array_equal(got.cpu().numpy(), mlp_kernels.mlp_sdf(pk, rows).cpu().numpy())
+
+
 def _render_inputs(spec, dev, B, F, R, M, seed):
     rng = np.random.default_rng(seed)
     ang = np.concatenate([rng.normal(size=(B, F, R, 2)) * 0.1, np.ones((B, F, R, 1))], -1)

@@ -67,8 +67,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from hortimapping_tpu_torch import resolve_device
     from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
     from hortimapping_tpu_torch.ops.mesher import MeshExtractor
-    from hortimapping_tpu_torch.optim.lm import coarse_to_fine_joint_opt
-    from hortimapping_tpu_torch.optim.warmstart import retrieval_joint_opt
+    from hortimapping_tpu_torch.optim.lm import (
+        coarse_to_fine_joint_opt,
+        shape_pose_joint_opt_batched,
+        solve_in_chunks,
+        staged_joint_opt,
+    )
+    from hortimapping_tpu_torch.optim.warmstart import (
+        maybe_retrieval_init,
+        retrieval_joint_opt,
+        warmstart_solve,
+    )
 
     assets = os.path.join(ROOT, "assets", "synthetic_small_8")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -80,7 +89,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     params, spec = config_decoder(assets, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         MeshExtractor(params, spec, voxels_dim=8)
-    for fn in (retrieval_joint_opt, coarse_to_fine_joint_opt):
+    for fn in (retrieval_joint_opt, coarse_to_fine_joint_opt, shape_pose_joint_opt_batched,
+               solve_in_chunks, staged_joint_opt):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(params, spec, None, None, None, None, 0.08)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        warmstart_solve(params, spec, None, None, None, None, None, 0.08)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        maybe_retrieval_init(params, spec, None, None, None, None, None)
     assert resolve_device("cpu") == torch.device("cpu")

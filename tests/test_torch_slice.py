@@ -62,11 +62,11 @@ def test_config_parse_matches_jax(path):
 
 
 def test_unported_options_raise():
-    for kw in (dict(trust_region=True), dict(pose_polish_iters=2), dict(multi_start=3),
-               dict(rescue_starts=4), dict(init_mode="other")):
+    for kw in (dict(jac_cap=64), dict(fwd_cap=128), dict(init_mode="other")):
         with pytest.raises(NotImplementedError):
             tconfig.JointOptConfig(**kw).check_ported()
-    tconfig.JointOptConfig(init_mode="retrieval").check_ported()
+    tconfig.JointOptConfig(init_mode="retrieval", trust_region=True, pose_polish_iters=2,
+                           multi_start=3, rescue_starts=4).check_ported()
 
 
 # ---------------------------------------------------------------- bench batch
