@@ -12,10 +12,14 @@ Phases (one line each; any failure ends the run with a non-zero exit):
   3. B4, the shared-latent kernel, vs its plain version on the mesher's 40^3
      grid under the batch's 32 retrieved codes, f32 and bf16, each meshed and
      held to the surface gate (vertex distance to the f32 zero level set);
-  4. B1, the fwd+input-grad kernel, and B2, the fused render kernel, vs their
+  4. B1, the fwd+input-grad kernel, and B2, the fused render kernel (three
+     launches: forward + render, band backward, per-ray sums), vs their
      plain versions at every shape of both paths (bench coarse and fine,
      greenhouse full resolution), B2 gated as the repo's fused-kernel gate
-     (ROADMAP.md "Rules") plus a small f32 case;
+     (ROADMAP.md "Rules") plus a small f32 case, each bit-equal across two
+     launches; B1 in the lanes form the LM launches (two frozen lanes),
+     beside one flat launch of the same rows; B2's time split by launch with
+     its band rows and their fill of 64-row chunks;
   5. the bench path: the bench.py workload (32 synthetic peppers, seed 42)
      at the full width of assets/synthetic_pepper_32 through retrieval warm
      start, coarse-to-fine LM and 40^3 meshing, timed with its split, mean
@@ -36,7 +40,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      plain version, mean Chamfer-L1 within 0.3 mm;
   9. one JSON line of kernel records, then the JSON result line.
 With --profile FILE, one bench batch and one greenhouse batch are traced by
-torch.profiler (device-time tables appended to FILE).
+torch.profiler (device-time tables appended to FILE), and one more
+greenhouse batch with the SDF term's frozen-lane skip turned off.
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 4). The JAX package is never imported.
@@ -202,37 +207,61 @@ def bound(nbytes: float, flops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def check_mlp(phase, pk32, table, n_rows, dev):
-    """B1 in f32 vs its plain version on n_rows [code | xyz] rows (codes of
-    the latent table, points at fruit scale); timed, with its bound."""
+def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev):
+    """B1 in f32 vs its plain version in the form the LM launches it: inputs
+    [lanes, rows_per_lane, C+3] (one code of the latent table a lane, points
+    at fruit scale) with two frozen lanes; timed, with its bound over the
+    active lanes' rows, and beside the same rows as one flat launch without
+    a mask."""
     import torch
 
-    from hortimapping_tpu_torch.ops import mlp_kernels
+    from hortimapping_tpu_torch.ops import cuda_build, mlp_kernels
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    codes = table[torch.randint(0, table.shape[0], (n_rows,), generator=gen, device=dev)]
-    xyz = torch.randn(n_rows, 3, generator=gen, device=dev) * 0.06
-    x = torch.cat([codes, xyz], dim=1).contiguous()
-    s_k, g_k = mlp_kernels.mlp_sdf_and_input_grad(pk32, x)
-    s_p, g_p = mlp_kernels.mlp_sdf_and_input_grad_plain(pk32, x)
+    codes = table[torch.randint(0, table.shape[0], (lanes,), generator=gen, device=dev)]
+    xyz = torch.randn(lanes, rows_per_lane, 3, generator=gen, device=dev) * 0.06
+    x = torch.cat([codes[:, None].expand(lanes, rows_per_lane, codes.shape[1]), xyz],
+                  dim=-1).contiguous()
+    active = torch.ones(lanes, dtype=torch.bool, device=dev)
+    active[[5, 17 % lanes]] = False  # frozen lanes exercise the skip
+    s_k, g_k = mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active)
+    s_p, g_p = mlp_kernels.mlp_sdf_and_input_grad_plain(pk32, x, active)
+    s_2, g_2 = mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active)
     torch.cuda.synchronize()
+    assert torch.equal(s_k, s_2) and torch.equal(g_k, g_2), (phase, "B1 differs between launches")
+    assert not s_k[~active].any() and not g_k[~active].any(), (phase, "frozen lanes not zero")
     err_s = float((s_k - s_p).abs().max())
     err_g = float((g_k - g_p).abs().max())
     g_scale = float(g_p.abs().max())
     # f32 on both sides, sums of up to 512 products in another order
     assert err_s <= 1e-5 and err_g <= 1e-4 * g_scale, (phase, err_s, err_g, g_scale)
-    ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad(pk32, x), 20)
-    plain_ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad_plain(pk32, x), 5)
+    ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active), 20)
+    plain_ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad_plain(pk32, x, active), 5)
+    flat = x.reshape(-1, x.shape[-1])
+    flat_ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad(pk32, flat), 20)
+    n_act = int(active.sum()) * rows_per_lane
     fwd, bwd = chain_macs(pk32)
-    flops = 2.0 * (fwd + bwd) * n_rows
-    bound_ms, bound_by = bound(n_rows * (2 * pk32.in_dim + 1) * 4 + weight_bytes(pk32), flops,
-                               H100_F32_FLOPS)
-    print(f"B1 mlp_fwd_grad vs plain, {phase} SDF term: {n_rows} rows f32 | max|d sdf| "
-          f"{err_s:.3g} max|d grad| {err_g:.3g} (of {g_scale:.3g}) | kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}, f32 CUDA-core peak) | no single PyTorch call", flush=True)
-    return dict(x=x, flops=flops, err=max(err_s, err_g), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    flops = 2.0 * (fwd + bwd) * n_act
+    nbytes = (n_act * pk32.in_dim + lanes * rows_per_lane * (pk32.in_dim + 1) + lanes) * 4
+    bound_ms, bound_by = bound(nbytes + weight_bytes(pk32), flops, H100_F32_FLOPS)
+    # blocks of 64 rows: each lane rounded up to whole clusters, frozen lanes
+    # exit at once; the card holds `wave` blocks at a time
+    wave = mlp_kernels.CLUSTER * cuda_build.load("mlp_fwd_grad").horti_mlp_fwd_grad_clusters(
+        pk32.D, pk32.n_mid, pk32.in_dim, 0)
+    assert wave > 0, (phase, "occupancy query failed", wave)
+    per_lane = -(-rows_per_lane // (64 * mlp_kernels.CLUSTER)) * mlp_kernels.CLUSTER
+    blocks = int(active.sum()) * per_lane
+    flat_blocks = -(-lanes * rows_per_lane // (64 * mlp_kernels.CLUSTER)) * mlp_kernels.CLUSTER
+    print(f"B1 mlp_fwd_grad vs plain, {phase} SDF term: {lanes} lanes x {rows_per_lane} rows "
+          f"f32, 2 frozen | max|d sdf| {err_s:.3g} max|d grad| {err_g:.3g} (of {g_scale:.3g}), "
+          f"frozen lanes zero | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; {blocks} active "
+          f"blocks of {per_lane * lanes}, {blocks / wave:.2f} waves of {wave}), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, f32 CUDA-core peak) | the "
+          f"{lanes * rows_per_lane} rows as one flat launch without a mask {flat_ms:.3f} ms "
+          f"({flat_blocks} blocks, {flat_blocks / wave:.2f} waves) | no single PyTorch call",
+          flush=True)
+    return dict(x=x, err=max(err_s, err_g), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
@@ -242,7 +271,7 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
     timed, with its bound."""
     import torch
 
-    from hortimapping_tpu_torch.ops import render_kernel
+    from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
     from hortimapping_tpu_torch.ops.render import sample_points
     from hortimapping_tpu_torch.optim.lm import render_geometry
 
@@ -260,7 +289,9 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
     stats = {}
     want = render_kernel.fused_render_plain(pk16, *rargs, stats=stats, **rkw)
     got = render_kernel.fused_render(pk16, *rargs, **rkw)
+    again = render_kernel.fused_render(pk16, *rargs, **rkw)
     torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), (phase, "B2 differs between launches")
     for t in got:
         assert bool(torch.isfinite(t).all())
     assert float(got[2][~lane_active].abs().max()) == 0.0
@@ -278,6 +309,19 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
     assert all(gates32[k] <= RENDER_TOL["f32"][k] for k in RENDER_TOL["f32"]), (phase, gates32)
     ms = cuda_ms(lambda: render_kernel.fused_render(pk16, *rargs, **rkw), 5)
     plain_ms = cuda_ms(lambda: render_kernel.fused_render_plain(pk16, *rargs, **rkw), 2)
+    # the three launches timed apart on the same inputs
+    rl = render_kernel.render_forward(pk16, *rargs, **rkw)
+    offsets = render_kernel.band_offsets(rl.counts)
+    cd, cm = render_kernel.render_band(pk16, latent, rl, offsets, sub_cfg.pose_dim)
+    split = dict(
+        fwd=cuda_ms(lambda: render_kernel.render_forward(pk16, *rargs, **rkw), 5),
+        scan=cuda_ms(lambda: render_kernel.band_offsets(rl.counts), 5),
+        band=cuda_ms(lambda: render_kernel.render_band(pk16, latent, rl, offsets,
+                                                       sub_cfg.pose_dim), 5),
+        sum=cuda_ms(lambda: render_kernel.render_sum(rl, offsets, cd, cm), 5))
+    total = int(offsets[-1])  # for the line below; the path never reads it on the host
+    chunks = -(-total // 64)
+    n_chunks = -(-chunks // mlp_kernels.CLUSTER) * mlp_kernels.CLUSTER
     fwd, bwd = chain_macs(pk16)
     flops = 2.0 * (fwd * stats["active_samples"] + bwd * stats["band_samples"])
     _, F, R, M, _ = pts.shape
@@ -288,12 +332,19 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
     fmt = lambda d: "{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items()) + "}"
     print(f"B2 fused_render vs plain, {phase} phase: B={B} F={F} R={R} M={M} (rays a tile "
           f"{render_kernel.ray_tile(pk16, latent.shape[1], sub_cfg.pose_dim, M)}) bf16 "
-          f"{fmt(gates)} (gates {fmt(tol)}) | f32 small {fmt(gates32)} | kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, bf16 tensor peak; "
-          f"{stats['active_samples']} samples fwd, {stats['band_samples']} band samples bwd) "
-          f"| no single PyTorch call", flush=True)
+          f"{fmt(gates)} (gates {fmt(tol)}) | f32 small {fmt(gates32)} | bit-equal across two "
+          f"launches | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}, bf16 tensor peak; {stats['active_samples']} samples fwd, "
+          f"{stats['band_samples']} band samples bwd) | no single PyTorch call", flush=True)
+    print(f"  B2 launches, {phase}: forward + render {split['fwd']:.3f} ms | scan of the band "
+          f"counts {split['scan']:.3f} ms | band backward {split['band']:.3f} ms over {total} "
+          f"band rows in {chunks} chunks of 64 (fill {total / max(64 * n_chunks, 1):.3f} of the "
+          f"{n_chunks} chunks run, one wave of clusters of {mlp_kernels.CLUSTER} taking them in "
+          f"turn) | per-ray sums {split['sum']:.3f} ms | scratch: band records "
+          f"{rl.recs.numel() * 4 / 1e6:.1f} MB, contributions {(cd.numel() + cm.numel()) * 4 / 1e6:.1f}"
+          f" MB (room for every sample)", flush=True)
     return dict(err=max(float((g - w).abs().max()) for g, w in zip(got, want)), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, split=split)
 
 
 def fwd_bound(pk, n_rows: int, in_bytes: float, out_bytes: float):
@@ -449,6 +500,20 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
     return out[mesher_mode]
 
 
+@contextlib.contextmanager
+def no_lane_skip():
+    """The SDF term of the LM without its frozen-lane skip (every lane
+    decoded), as before the skip existed."""
+    from hortimapping_tpu_torch.optim import lm
+
+    orig = lm.sdf_residuals
+    lm.sdf_residuals = lambda *a, **k: orig(*a[:7])
+    try:
+        yield
+    finally:
+        lm.sdf_residuals = orig
+
+
 def profile_main(run, smi, path: str, label: str) -> None:
     """Trace one batch of a path with torch.profiler: its device-time table
     is appended to `path`, one summary line goes to stdout."""
@@ -481,8 +546,9 @@ class LaunchCounts:
         from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
 
         mlp_kernels.launches = mlp_kernels.launches_fwd = mlp_kernels.launches_shared_latent = 0
-        render_kernel.launches = 0
+        render_kernel.launches = render_kernel.launches_band = render_kernel.launches_sum = 0
         self.n = {}
+        self.b2 = {}
 
     def read(self) -> None:
         from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
@@ -490,12 +556,16 @@ class LaunchCounts:
         self.n = dict(mlp_fwd_grad=mlp_kernels.launches, fused_render=render_kernel.launches,
                       mlp_fwd=mlp_kernels.launches_fwd,
                       mlp_shared_latent=mlp_kernels.launches_shared_latent)
+        self.b2 = dict(band=render_kernel.launches_band, sums=render_kernel.launches_sum)
 
     def require(self, names, path: str) -> None:
         assert all(self.n[k] > 0 for k in names), (path, self.n)
+        # B2's band backward and per-ray sums are kernels of the path too
+        assert "fused_render" not in names or min(self.b2.values()) > 0, (path, self.b2)
 
     def __str__(self) -> str:
-        return ", ".join(f"{k} {v}" for k, v in self.n.items())
+        return (", ".join(f"{k} {v}" for k, v in self.n.items())
+                + f" (B2's band backward {self.b2['band']}, per-ray sums {self.b2['sums']})")
 
 
 class Stages:
@@ -557,7 +627,7 @@ def plain_versions():
     """Every kernel swapped for its plain PyTorch version, on the card."""
     from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
 
-    swaps = ((mlp_kernels, "_fwd_grad_cuda", mlp_kernels.chain_plain),
+    swaps = ((mlp_kernels, "_fwd_grad_cuda", mlp_kernels._fwd_grad_plain),
              (render_kernel, "_fused_render_cuda", render_kernel.fused_render_plain),
              (mlp_kernels, "_fwd_cuda", mlp_kernels.forward_plain),
              (mlp_kernels, "_shared_latent_cuda", mlp_kernels.shared_latent_plain))
@@ -649,9 +719,8 @@ def main() -> int:
           f"build of {len(cuda_build.KERNELS)} kernel libraries + host library {build_s:.1f} s",
           flush=True)
     for name in cuda_build.KERNELS:
-        for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in cuda_build.ptxas_summary(cuda_build.build_log(name)):
+            print(f"  ptxas {name}: {line}")
 
     params, spec = config_decoder(os.path.join(ROOT, "assets", "synthetic_pepper_32"), device=dev)
     table = load_latent_vectors(os.path.join(ROOT, "assets", "synthetic_pepper_32"), device=dev)
@@ -661,6 +730,15 @@ def main() -> int:
     pk32 = mlp_kernels.pack_params(params, spec, torch.float32)
     pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
     records = {}
+    b1_smem = cuda_build.load("mlp_fwd_grad").horti_mlp_fwd_grad_smem
+    r_smem = render_kernel._lib().horti_render_smem
+    tr_gh = render_kernel.tiling(1, gh_cfg.n_sample_on_ray)[0]
+    print(f"  dynamic shared memory a block at {pk32.n_mid + 1} x {pk32.D}: B1 f32 "
+          f"{b1_smem(pk32.D, pk32.n_mid, pk32.in_dim, 0)} B, bf16 "
+          f"{b1_smem(pk32.D, pk32.n_mid, pk32.in_dim, 1)} B; B2 forward + render (bf16, "
+          f"{tr_gh} rays) {r_smem(0, pk16.D, pk16.n_mid, pk16.in_dim, C, tr_gh, 1)} B, band "
+          f"backward bf16 {r_smem(1, pk16.D, pk16.n_mid, pk16.in_dim, C, tr_gh, 1)} B, f32 "
+          f"{r_smem(1, pk32.D, pk32.n_mid, pk32.in_dim, C, tr_gh, 0)} B", flush=True)
 
     # the bench batch (bench.py: 32 synthetic peppers, seed 42); the
     # greenhouse config has the same observation shapes
@@ -702,18 +780,20 @@ def main() -> int:
     for phase, n in (("bench coarse", int(cfg.recon_n_pts * cfg.coarse_pts_frac)),
                      ("bench fine", int(cfg.recon_n_pts * cfg.fine_pts_frac)),
                      ("greenhouse", gh_cfg.recon_n_pts)):
-        b1[phase] = check_mlp(phase, pk32, table, N_FRUITS * n, dev)
+        b1[phase] = check_mlp(phase, pk32, table, N_FRUITS, n, dev)
     # the same chain in bf16 on the tensor cores (the render kernel's mode)
-    x, flops = b1["bench fine"]["x"], b1["bench fine"]["flops"]
+    x = b1["bench fine"]["x"].reshape(-1, pk16.in_dim)
+    flops = 2.0 * sum(chain_macs(pk16)) * x.shape[0]
     s16, g16 = mlp_kernels.mlp_sdf_and_input_grad(pk16, x)
     assert bool(torch.isfinite(s16).all()) and bool(torch.isfinite(g16).all())
     ms_16 = cuda_ms(lambda: mlp_kernels.mlp_sdf_and_input_grad(pk16, x), 20)
-    # modelled, not counted: each 32-row block reads the weights from L2 once
-    # forward and once backward
-    l2_bytes = 2 * -(-x.shape[0] // 32) * weight_bytes(pk16)
-    print(f"B1 in bf16 (tensor cores), bench fine rows: {ms_16:.3f} ms, {flops / ms_16 / 1e9:.1f} "
+    # modelled, not counted: each cluster of 64-row blocks reads the weights
+    # from L2 once forward and once backward
+    l2_bytes = 2 * -(-x.shape[0] // (64 * mlp_kernels.CLUSTER)) * weight_bytes(pk16)
+    print(f"B1 in bf16 (wgmma), bench fine rows: {ms_16:.3f} ms, {flops / ms_16 / 1e9:.1f} "
           f"TFLOP/s, weights read from L2 at {l2_bytes / ms_16 / 1e9:.2f} TB/s (modelled "
-          f"traffic: once forward, once backward per 32-row block)", flush=True)
+          f"traffic: once forward, once backward per cluster of {mlp_kernels.CLUSTER} 64-row "
+          f"blocks)", flush=True)
     gh = b1["greenhouse"]
     records["mlp_fwd_grad"] = dict(
         name="mlp_fwd_grad", route="cuda", source="hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
@@ -858,6 +938,9 @@ def main() -> int:
     if args.profile:
         profile_main(lambda: run_gh(obs, T0, lat_mean, gh_cfg, N_FRUITS), smi, args.profile,
                      "greenhouse path")
+        with no_lane_skip():
+            profile_main(lambda: run_gh(obs, T0, lat_mean, gh_cfg, N_FRUITS), smi, args.profile,
+                         "greenhouse path, SDF term without the frozen-lane skip")
 
     def functional_gate(label, o, T, lat0, cfg_, n, gts_):
         """The path on `o` with the kernels, then with every kernel swapped
@@ -898,7 +981,7 @@ def main() -> int:
               obs_tr.point_valid[:, None, :P].expand(N_TR, S, P).reshape(N_TR * S, P),
               spec.clamping_distance)
     check_shared_latent("trust region", params, spec, pk16, pk32, lat_rt, dev, surface=False)
-    check_mlp("trust region", pk32, table, N_TR * tr_cfg.recon_n_pts, dev)
+    check_mlp("trust region", pk32, table, N_TR, tr_cfg.recon_n_pts, dev)
     check_render("trust region", pk16, pk32, obs_tr, tr_cfg, lat_rt, T_rt, dev)
 
     run_gh(obs_tr, T0_tr, lat_tr, tr_cfg, N_TR)  # warm-up

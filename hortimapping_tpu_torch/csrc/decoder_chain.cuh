@@ -1,21 +1,17 @@
-// Frozen DeepSDF decoder chain shared by all four CUDA kernels of the port:
-// the forward (ReLU layers, latent_in skip, tanh head) and the input-gradient
-// backward (one reverse chain of g @ W^T products masked by the ReLU signs,
-// no weight gradients). Counterpart of `_fwd_chain` + `input_grad_chain` in
-// hortimapping_tpu/ops/pallas_mlp.py, which the Pallas kernels share for
-// the same reason: the fwd+grad kernel (mlp_fwd_grad.cu), the fused render
-// kernel (fused_render.cu) and the two forward-only kernels (mlp_fwd.cu,
-// mlp_shared_latent.cu) can never drift apart.
+// Frozen DeepSDF decoder forward (ReLU layers, latent_in skip, tanh head)
+// shared by the two forward-only kernels of the port, mlp_fwd.cu (B3) and
+// mlp_shared_latent.cu (B4), as the Pallas kernels share `_fwd_chain` in
+// hortimapping_tpu/ops/pallas_mlp.py. The fwd+input-grad kernel (B1) and
+// the fused render kernels (B2) run the Hopper chain of stream_chain.cuh,
+// which takes its small helpers from here.
 //
 // Layout on Hopper (not the TPU's): a block of 256 threads (8 warps) pushes
-// a chunk of 32 rows (64 in the render kernel's bf16 forward) through the
-// chain; the activations of the chunk live in shared memory and never reach
-// device memory. Weights (3.7 MB in bf16, 7.4 MB in f32 for 8x512) stay in
-// L2 and stream to the SMs layer by layer.
+// a chunk of 32 rows (64 with bf16) through the chain; the activations of
+// the chunk live in shared memory and never reach device memory. Weights
+// (3.7 MB in bf16, 7.4 MB in f32 for 8x512) stay in L2 and stream to the
+// SMs layer by layer.
 // The latent_in skip writes x into the last C+3 columns of layer li's input
-// (layer li-1's padded output columns are zero); the backward adds those
-// columns of g into grad_x. The backward keeps one bit per activation: the
-// ReLU sign masks.
+// (layer li-1's padded output columns are zero).
 //
 // Storage type WT picks the arithmetic:
 //   * float: f32 FMA on the CUDA cores (no TF32 anywhere). Activations f32
@@ -30,10 +26,7 @@
 //     `.astype(cdt)` before each dot; bf16 x bf16 products are exact in f32.
 //
 // A chunk fetches every weight from L2 once: 32 rows a chunk make 32 FLOP a
-// weight byte, and the bf16 chain then runs near the L2's rate (~79 TFLOP/s
-// at 8x512 on an H100, weights read at ~2.5 TB/s, see PERF.md). The render
-// kernel's forward therefore takes 64-row chunks; more rows per fetch
-// (clusters sharing a TMA multicast, wgmma) is the next step.
+// weight byte, so the chain runs near the L2's rate (see PERF.md).
 #pragma once
 
 #include <cstdint>
@@ -65,7 +58,6 @@ constexpr int kFwdRows = std::is_same<WT, __nv_bfloat16>::value ? 64 : kChunk;
 template <typename WT>
 struct DecoderWeights {
   const WT* w0;     // [in_dim][D]  layer 0, [in][out]
-  const WT* w0t;    // [D][round4(in_dim)] layer 0 transposed, zero-padded (f32 backward)
   const WT* w0tk;   // [D][round16(in_dim)] layer 0 transposed, zero-padded in k (bf16 forward)
   const WT* wm;     // [n_mid][D][D] layers 1..n_mid, [in][out]
   const WT* wmt;    // [n_mid][D][D] the same transposed, [out][in]
@@ -77,17 +69,15 @@ struct DecoderWeights {
 };
 
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
-__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
 // Shared-memory buffers of one chunk of ROWS rows: h activations, x input
-// (rounded to WT, zero past in_dim), gx input gradient f32 [ROWS][in_dim],
-// y tanh out, and (bf16 path) each warp's ring of weight fragments.
+// (rounded to WT, zero past in_dim), y tanh out, and (bf16 path) each
+// warp's ring of weight fragments.
 struct ChainBuf {
   unsigned char* ring;
   void* h;
   void* x;
-  float* gx;
   float* y;
   int ldh, ldx, xcols;
 };
@@ -115,8 +105,7 @@ __host__ __device__ inline size_t chain_buf_bytes(int D, int in_dim) {
   int ldh, ldx, xcols;
   chain_dims<WT>(D, in_dim, ldh, ldx, xcols);
   return ring_bytes<WT>() + align16((size_t)ROWS * ldh * sizeof(WT)) +
-         align16((size_t)ROWS * ldx * sizeof(WT)) +
-         align16((size_t)ROWS * in_dim * sizeof(float)) + align16(ROWS * sizeof(float));
+         align16((size_t)ROWS * ldx * sizeof(WT)) + align16(ROWS * sizeof(float));
 }
 
 template <typename WT, int ROWS = kChunk>
@@ -129,8 +118,6 @@ __device__ inline ChainBuf chain_carve(unsigned char* base, int D, int in_dim) {
   base += align16((size_t)ROWS * b.ldh * sizeof(WT));
   b.x = base;
   base += align16((size_t)ROWS * b.ldx * sizeof(WT));
-  b.gx = reinterpret_cast<float*>(base);
-  base += align16((size_t)ROWS * in_dim * sizeof(float));
   b.y = reinterpret_cast<float*>(base);
   return b;
 }
@@ -157,18 +144,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Word layout of the ReLU sign masks of one chunk: [layer][row][D / 32].
-__host__ __device__ inline size_t mask_layer_words(int D, int rows = kChunk) {
-  return (size_t)rows * (D / 32);
-}
-__host__ __device__ inline size_t chain_mask_words(int D, int n_mid, int rows = kChunk) {
-  return (size_t)(n_mid + 1) * mask_layer_words(D, rows);
-}
-
-__device__ __forceinline__ bool mask_bit(const uint32_t* mk, int words, int r, int c) {
-  return (mk[r * words + c / 32] >> (c % 32)) & 1u;
 }
 
 // ------------------------------------------------------------------ f32 path
@@ -355,27 +330,12 @@ __device__ __forceinline__ void mma_matmul(const bf16* __restrict__ A, int lda, 
   __syncthreads();
 }
 
-// ReLU sign words of one layer from the stored activations: one warp
-// ballot per 32 columns of a row.
-template <typename WT>
-__device__ __forceinline__ void masks_from_h(const WT* h, int ldh, int D, int rows,
-                                             uint32_t* mk) {
-  const int words = D / 32, lane = threadIdx.x & 31;
-  for (int e = threadIdx.x >> 5; e < rows * words; e += kWarps) {  // warp-uniform
-    const bool on = to_float(h[(e / words) * ldh + (e % words) * 32 + lane]) > 0.f;
-    const unsigned bits = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) mk[e] = bits;
-  }
-}
-
 // ------------------------------------------------------------------ chain
 
 // Forward of one chunk of ROWS rows (32, or 64 with bf16): reads buf.x,
-// writes the masks ((n_mid + 1) layers; none when masks is null, for a
-// forward-only kernel) and buf.y. Every thread of the block calls it.
+// writes buf.y. Every thread of the block calls it.
 template <typename WT, int ROWS = kChunk>
-__device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
-                              uint32_t* __restrict__ masks) {
+__device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf) {
   const int lane = threadIdx.x & 31;
   const int D = w.D, in_dim = w.in_dim, ldh = buf.ldh;
   WT* h = reinterpret_cast<WT*>(buf.h);
@@ -431,10 +391,6 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
       }
     }
     __syncthreads();
-    if (masks != nullptr) {  // block-uniform
-      masks_from_h<WT>(h, ldh, D, ROWS, masks + (size_t)l * mask_layer_words(D, ROWS));
-      __syncthreads();
-    }
     if (l + 1 == w.li) {
       // latent_in: layer li reads concat(h, x); the last in_dim outputs of
       // layer li-1 are zero-padded, so the concat is a write into them
@@ -454,87 +410,6 @@ __device__ void chain_forward(const DecoderWeights<WT>& w, ChainBuf& buf,
     if (lane == 0) buf.y[r] = tanhf(s + w.bl);
   }
   __syncthreads();
-}
-
-// Input gradient d y / d x of one chunk from its masks and tanh outputs y,
-// into buf.gx. Uses buf.h as scratch for g.
-template <typename WT>
-__device__ void chain_input_grad(const DecoderWeights<WT>& w, const uint32_t* __restrict__ masks,
-                                 const float* __restrict__ y, ChainBuf& buf) {
-  const int D = w.D, in_dim = w.in_dim, words = D / 32, ldh = buf.ldh, skip0 = D - in_dim;
-  WT* g = reinterpret_cast<WT*>(buf.h);
-  float* gx = buf.gx;
-  const bool skip_head = w.n_mid + 1 == w.li;
-  // g at the head's input; the skip takes its share unmasked, the chain
-  // continues with the mask of the last hidden layer
-  for (int e = threadIdx.x; e < kChunk * in_dim; e += kThreads) {
-    const int r = e / in_dim;
-    gx[e] = skip_head ? round_st<WT>(round_st<WT>(1.f - y[r] * y[r]) *
-                                     to_float(w.wl[skip0 + e % in_dim]))
-                      : 0.f;
-  }
-  const uint32_t* mk_top = masks + (size_t)w.n_mid * mask_layer_words(D);
-  for (int e = threadIdx.x; e < kChunk * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const float v = round_st<WT>(1.f - y[r] * y[r]) * to_float(w.wl[c]);
-    g[r * ldh + c] = static_cast<WT>(mask_bit(mk_top, words, r, c) ? round_st<WT>(v) : 0.f);
-  }
-  __syncthreads();
-  for (int j = w.n_mid - 1; j >= -1; --j) {
-    // g (masked, rounded) @ W_{j+1}^T; j = -1 is layer 0 into gx
-    const bool last = j < 0;
-    const int N = last ? in_dim : D;
-    const uint32_t* mk_next = last ? nullptr : masks + (size_t)j * mask_layer_words(D);
-    const bool skip_here = !last && j + 1 == w.li;
-    if constexpr (std::is_same<WT, bf16>::value) {
-      float acc[2][kMaxNT][4];
-      mma_matmul<2>(g, ldh, D, last ? w.w0 : w.wm + (size_t)j * D * D, D, N, buf.ring, acc);
-      const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3, warp = threadIdx.x >> 5;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int t = 0; t < kMaxNT; ++t) {
-          const int c0 = (warp + kWarps * t) * 8 + tq * 2;
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int r = mt * 16 + gq + hf * 8;
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              const int c = c0 + q;
-              if (c >= N) continue;
-              const float v = acc[mt][t][2 * hf + q];
-              if (last) {
-                gx[r * in_dim + c] += v;
-              } else {
-                if (skip_here && c >= skip0) gx[r * in_dim + c - skip0] += round_st<WT>(v);
-                g[r * ldh + c] =
-                    static_cast<WT>(mask_bit(mk_next, words, r, c) ? round_st<WT>(v) : 0.f);
-              }
-            }
-          }
-        }
-    } else {
-      float acc[kRows][kCols];
-      fma_matmul(reinterpret_cast<const float*>(g), D, D,
-                 last ? w.w0t : w.wmt + (size_t)j * D * D, last ? round4(in_dim) : D, N, acc);
-      const int tx = threadIdx.x % kColThreads, ty = threadIdx.x / kColThreads;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int jj = 0; jj < kCols; ++jj) {
-          const int c = f32_col(tx, jj), r = ty * kRows + i;
-          if (c >= N) continue;
-          const float v = acc[i][jj];
-          if (last) {
-            gx[r * in_dim + c] += v;
-          } else {
-            if (skip_here && c >= skip0) gx[r * in_dim + c - skip0] += v;
-            g[r * ldh + c] = mask_bit(mk_next, words, r, c) ? v : 0.f;
-          }
-        }
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace horti

@@ -1,4 +1,4 @@
-// The whole occlusion-aware render residual term in one launch.
+// The whole occlusion-aware render residual term, in three launches.
 //
 // Replaces the TPU kernel `_fused_render_kernel` (hortimapping_tpu/ops/
 // pallas_render.py, reached through `fused_render`): for every ray of every
@@ -7,35 +7,48 @@
 // the rendered depth (with termination bin) and occupancy, the suffix sums
 // behind d depth/d occ and d mask/d occ, the band and min-grad masks, the
 // occlusion rejection of background rays, the per-ray residuals and
-// in-radius count, and, only on tiles with a surviving band sample, the
-// decoder input-gradient backward chained through the pose [I | -p^ | p]
-// and summed per ray into the depth and mask Jacobians [pose_dim + C].
+// in-radius count, and the decoder input-gradient backward on the band
+// samples chained through the pose [I | -p^ | p] and summed per ray into
+// the depth and mask Jacobians [pose_dim + C].
 //
 // Bound on the H100: operations (the decoder chain, ~3.7 MFLOP a sample
-// forward and as much again backward at 8x512) against a few dozen bytes a
-// sample in and ~330 bytes a ray out. Design:
-//   * grid (ray tiles, frames, fruits): one launch for the batch, replacing
-//     the JAX vmap over frames and fruits; a tile holds whole rays (TR rays x
-//     M samples, TR = 128 / M), so the transmittance product, the suffix sum
-//     and the per-ray Jacobian sums are block-local loops with no atomics;
-//   * the decoder chain of decoder_chain.cuh runs over the tile in chunks
-//     of 64 rows (bf16, so each weight fragment from L2 serves 64 rows) or
-//     32 (f32); the forward keeps one ReLU sign bit per activation of the
-//     whole tile in shared memory (16 KB per 32 rows at 8x512), so the
-//     backward needs no second forward;
-//   * the render math runs one thread per ray, along the ray;
-//   * two gates skip work as the TPU kernel does: a frozen LM lane
-//     (active = 0) writes zeros and returns, and a tile without any band
-//     sample skips the backward entirely;
-//   * the backward runs on the tile's band rows only (a sample whose
-//     Jacobian weights are not both zero), gathered in order into 32-row
-//     chunks with their sign words and tanh outputs, so its cost follows
-//     the band (~1/6 of the samples at the bench shape), not the tile.
+// forward at 8x512, as much again backward on the ~16 % of samples in the
+// band) against a few dozen bytes a sample. The chain is stream_chain.cuh:
+// 64-row chunks, the weights shared over a cluster, wgmma in bf16.
+//   1. horti_render_forward: grid (ray tiles, frames, fruits), a cluster of
+//      tiles of one frame along x, so a frozen LM lane (active = 0) is a
+//      whole cluster that writes zeros and returns. A tile holds whole rays
+//      (tr rays x M samples, at most 128 rows, two 64-row chunks); every
+//      block runs all chunks, so the blocks of a cluster consume the same
+//      weight stages (grid.x is padded with empty tiles). The render math
+//      runs one thread per ray, along the ray. The tile writes its
+//      residuals and its band rows (samples whose depth or mask weight is
+//      not zero, in sample order) into its own slot of the record scratch,
+//      with their count.
+//   2. the band rows of the whole launch, packed in tile order by an
+//      exclusive scan of the counts (the wrapper's torch.cumsum), go
+//      through horti_render_band in full 64-row chunks: the forward again
+//      (with sign bits) and the input-gradient backward, each row's [J]
+//      contributions (jac_entry x wd, x wmk) written to its packed slot.
+//      The host never reads the band's size: the grid is one wave of
+//      clusters, each reads the total from the scan and takes every
+//      n-th pair of chunks, its ring streaming the weights for all of them;
+//   3. horti_render_sum: one block per tile sums its rays' contributions in
+//      sample order and applies ray_ok.
+// No atomics: every output has one writer and a fixed summation order, so
+// two launches on the same inputs agree bit for bit.
 // The frame-level `min_valid_sample` gate needs all tiles of a frame and
 // stays in the PyTorch epilogue (ops/render.py).
-#include "decoder_chain.cuh"
+#include "stream_chain.cuh"
 
 using namespace horti;
+
+constexpr int kRec = 8;          // floats a band record: ray, wd, wmk, p[3], pad
+constexpr int kTileRows = 128;   // samples a tile holds at most
+constexpr int kSumThreads = 128;
+// the forward kernel keeps no gradient buffers: room for one more ring slot
+template <typename WT>
+constexpr int kFwdSlots = StreamCfg<WT>::kSlots + 1;
 
 struct RenderArgs {
   const float* pts;     // [B][F][R][M][3] object-frame sample points
@@ -44,18 +57,12 @@ struct RenderArgs {
   const float* fscal;   // [B][F][3]: delta_d, d_term_bg, bbx_radius
   const float* active;  // [B] 0 = frozen lane
   const float* latent;  // [B][C]
-  float* jd;            // [B][F][R][J] depth Jacobian, J = pose_dim + C
-  float* jm;            // [B][F][R][J] mask Jacobian
   float* res;           // [B][F][R][4]: res_d, res_m, ray_ok, in-radius count
-  int F, R, M, C, J, tr, n_chunks, pose_dim, scale_on, log_occ_on, occlusion_on;
+  float* recs;          // [n_tiles][tr * M][kRec] band records
+  int* counts;          // [n_tiles] band rows of each tile
+  int F, R, M, C, tr, tiles_x, pose_dim, log_occ_on, occlusion_on;
   float occ_cutoff, sigma, occlusion_th, min_grad_th;
 };
-
-// Shared-memory 4-byte words of one block besides the chain's and the masks.
-__host__ __device__ inline size_t render_smem_words(int C, int J, int tr, int n_chunks) {
-  const size_t rows_cap = (size_t)n_chunks * kChunk;
-  return (size_t)C + rows_cap * 7 + kChunk + 1 + (size_t)tr * 4 + 2 * (size_t)tr * J;
-}
 
 __device__ __forceinline__ float occupancy(float s, const RenderArgs& a) {
   if (a.log_occ_on) {
@@ -79,225 +86,323 @@ __device__ __forceinline__ float jac_entry(int d, const float* g, const float* p
   return g[d - pose_dim];
 }
 
-// Forward chunks of kFwdRows rows (decoder_chain.cuh); band chunks of the
-// backward: 32.
-// 32-row units of a tile of tr rays x M samples, rounded up to whole
-// forward chunks.
-__host__ __device__ inline int render_units(int tr, int M, bool bf16) {
-  const int per = (bf16 ? kFwdRows<__nv_bfloat16> : kFwdRows<float>) / kChunk;
-  return ((tr * M + kChunk - 1) / kChunk + per - 1) / per * per;
+// Shared memory of the forward kernel besides the ring and the chain, in
+// 4-byte words: lat [C], P [128][3], sdf, wd, wmk [128], rayv [tr][4].
+__host__ __device__ inline size_t fwd_extra_words(int C, int tr) {
+  return (size_t)C + kTileRows * 6 + (size_t)tr * 4;
 }
 
 template <typename WT>
-__global__ void __launch_bounds__(kThreads) fused_render_kernel(RenderArgs a, DecoderWeights<WT> w) {
-  constexpr int FR = kFwdRows<WT>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D = w.D, in_dim = w.in_dim, M = a.M, C = a.C, J = a.J, tr = a.tr;
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    render_forward_kernel(RenderArgs a, StreamWeights<WT> w) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = w.D, in_dim = w.in_dim, M = a.M, C = a.C, tr = a.tr;
   const int b = blockIdx.z, f = blockIdx.y;
   const int r0 = blockIdx.x * tr;
-  const int nr = min(tr, a.R - r0);
+  const int nr = max(0, min(tr, a.R - r0));  // 0 on a padding tile
   const long frame = (long)b * a.F + f;
   const long ray0 = frame * a.R + r0;  // global index of the tile's first ray
+  const long tile = frame * a.tiles_x + blockIdx.x;
+  const int cap = tr * M;
 
   if (a.active[b] <= 0.5f) {  // frozen LM lane: its outputs are discarded
-    for (int e = threadIdx.x; e < nr * J; e += kThreads) {
-      a.jd[ray0 * J + e] = 0.f;
-      a.jm[ray0 * J + e] = 0.f;
-    }
-    for (int e = threadIdx.x; e < nr * 4; e += kThreads) a.res[ray0 * 4 + e] = 0.f;
+    for (int e = threadIdx.x; e < nr * 4; e += blockDim.x) a.res[ray0 * 4 + e] = 0.f;
+    if (threadIdx.x == 0) a.counts[tile] = 0;
     return;
   }
-
-  const int rows_cap = a.n_chunks * kChunk;
-  ChainBuf buf = chain_carve<WT, FR>(smem, D, in_dim);
-  float* lat = reinterpret_cast<float*>(smem + chain_buf_bytes<WT, FR>(D, in_dim));  // [C]
-  float* P = lat + C;                               // [rows_cap][3]
-  float* sdf = P + (size_t)rows_cap * 3;            // [rows_cap]
-  float* wd = sdf + rows_cap;                       // [rows_cap] depth weight per sample
-  float* wmk = wd + rows_cap;                       // [rows_cap] mask weight per sample
-  float* rayv = wmk + rows_cap;                     // [tr][4]
-  float* Jd = rayv + (size_t)tr * 4;                // [tr][J]
-  float* Jm = Jd + (size_t)tr * J;                  // [tr][J]
-  float* yb = Jm + (size_t)tr * J;                  // [kChunk] tanh outputs of a band chunk
-  int* band_rows = reinterpret_cast<int*>(yb + kChunk);  // [rows_cap] band rows, in order
-  int* n_band = band_rows + rows_cap;
-  uint32_t* masks = reinterpret_cast<uint32_t*>(n_band + 1);  // [rows_cap / FR][chain masks]
-  const size_t cmw = chain_mask_words(D, w.n_mid, FR);
-  uint32_t* band_masks = masks + (rows_cap / FR) * cmw;  // [chain masks] of a 32-row band chunk
-
-  const int rows = nr * M;
-  const int nc = (rows + FR - 1) / FR;
-  for (int e = threadIdx.x; e < C; e += kThreads) lat[e] = a.latent[(long)b * C + e];
-  for (int e = threadIdx.x; e < rows_cap * 3; e += kThreads)
-    P[e] = e < rows * 3 ? a.pts[ray0 * M * 3 + e] : 0.f;
-  __syncthreads();
-
-  // ---- decoder forward over the tile, chunk by chunk ----
-  for (int c = 0; c < nc; ++c) {
-    for (int e = threadIdx.x; e < FR * buf.xcols; e += kThreads) {
-      const int r = e / buf.xcols, i = e % buf.xcols, row = c * FR + r;
-      chain_store_x<WT>(buf, r, i, i < C ? lat[i] : i < in_dim ? P[row * 3 + i - C] : 0.f);
-    }
-    __syncthreads();
-    chain_forward<WT, FR>(w, buf, masks + c * cmw);
-    for (int r = threadIdx.x; r < FR; r += kThreads) sdf[c * FR + r] = buf.y[r];
-    __syncthreads();
+  const int n_chunks = (cap + kSRows - 1) / kSRows;
+  Ring ring = ring_init<WT>(smem, w, n_chunks, false, kFwdSlots<WT>);
+  unsigned char* cbase = smem + ring_region_bytes<WT>(D, in_dim, kFwdSlots<WT>);
+  Chain64 c = chain64_carve<WT>(cbase, D, w.n_mid, in_dim, false);
+  float* lat = reinterpret_cast<float*>(cbase + chain64_bytes<WT>(D, w.n_mid, in_dim, false));
+  float* P = lat + C;                    // [128][3]
+  float* sdf = P + kTileRows * 3;        // [128]
+  float* wd = sdf + kTileRows;           // [128] depth weight per sample
+  float* wmk = wd + kTileRows;           // [128] mask weight per sample
+  float* rayv = wmk + kTileRows;         // [tr][4]
+  if (threadIdx.x >= kConsumerThreads) {
+    producer_role(ring);
+    return;
   }
+  consumer_start();
+  {
+    const int rows = nr * M;
+    for (int e = threadIdx.x; e < C; e += kConsumerThreads) lat[e] = a.latent[(long)b * C + e];
+    for (int e = threadIdx.x; e < kTileRows * 3; e += kConsumerThreads)
+      P[e] = e < rows * 3 ? a.pts[ray0 * M * 3 + e] : 0.f;
+    consumer_sync();
 
-  // ---- render math, one thread per ray ----
-  const float* fs = a.fscal + frame * 3;
-  const float delta_d = fs[0], d_term_bg = fs[1], bbx = fs[2];
-  const float* dep = a.depths + frame * M;
-  const float cut = a.occ_cutoff;
-  int any_band = 0;
-  for (int t = threadIdx.x; t < nr; t += kThreads) {
-    const float* ri = a.rinfo + (ray0 + t) * 3;
-    const float depth_obs = ri[0], is_fg = ri[1];
-    const bool ray_valid = ri[2] > 0.5f;
-    float trans = 1.f, occ_ray = 0.f, du = 0.f, count = 0.f;
-    for (int m = 0; m < M; ++m) {
-      const int row = t * M + m;
-      const float* p = P + row * 3;
-      const bool valid = (p[0] * p[0] + p[1] * p[1] + p[2] * p[2] < bbx * bbx) && ray_valid;
-      const float occ = valid ? occupancy(sdf[row], a) : 0.f;
-      const float tp = occ * trans;
-      occ_ray += tp;
-      du += dep[m] * tp;
-      trans *= 1.f - occ;
-      wd[row] = trans;  // inclusive transmittance, read back by the suffix pass
-      count += valid ? 1.f : 0.f;
+    // ---- decoder forward over the tile, chunk by chunk ----
+    const int k0 = stream_k0<WT>(in_dim);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      for (int e = threadIdx.x; e < kSRows * k0; e += kConsumerThreads) {
+        const int r = e / k0, i = e % k0, row = ch * kSRows + r;
+        chain64_store_x<WT>(c, in_dim, r, i,
+                            i < C ? lat[i] : i < in_dim ? P[row * 3 + i - C] : 0.f);
+      }
+      publish<WT>();
+      chain64_forward<WT>(w, c, ring);
+      for (int r = threadIdx.x; r < kSRows; r += kConsumerThreads) sdf[ch * kSRows + r] = c.y[r];
     }
-    const float term_end = trans;
-    const float d_u = du + d_term_bg * term_end;
-    const bool occluded = a.occlusion_on && is_fg < 0.5f && depth_obs < d_u - a.occlusion_th &&
-                          depth_obs > 0.f;
-    float suffix = 0.f;
-    bool ok = false;
-    for (int m = M - 1; m >= 0; --m) {
-      const int row = t * M + m;
-      const float* p = P + row * 3;
-      const bool valid = (p[0] * p[0] + p[1] * p[1] + p[2] * p[2] < bbx * bbx) && ray_valid;
-      const float s = sdf[row];
-      const float occ = valid ? occupancy(s, a) : 0.f;
-      suffix += wd[row];
-      const float one_minus = 1.f - occ;
-      const float denom = one_minus <= 0.f ? 1.f : one_minus;
-      const float de_do = suffix * delta_d / denom;
-      const float dm_do = term_end / denom;
-      const float do_ds = a.log_occ_on ? -occ * (1.f - occ) / a.sigma : -1.f / (2.f * cut);
-      const bool keep = valid && s > -cut && s < cut && de_do > a.min_grad_th && !occluded;
-      wd[row] = keep ? de_do * do_ds : 0.f;
-      wmk[row] = keep ? dm_do * do_ds : 0.f;
-      ok = ok || keep;
-    }
-    const float target = is_fg > 0.5f ? depth_obs : d_term_bg;
-    rayv[t * 4 + 0] = ok ? target - d_u : 0.f;
-    rayv[t * 4 + 1] = ok ? occ_ray - is_fg : 0.f;
-    rayv[t * 4 + 2] = ok ? 1.f : 0.f;
-    rayv[t * 4 + 3] = count;
-    any_band |= ok ? 1 : 0;
-  }
-  const int band = __syncthreads_or(any_band);
+    consumer_sync();
 
-  // ---- backward only where a band sample survived, and only on its rows ----
-  if (band) {
-    for (int e = threadIdx.x; e < tr * J; e += kThreads) {
-      Jd[e] = 0.f;
-      Jm[e] = 0.f;
+    // ---- render math, one thread per ray ----
+    const float* fs = a.fscal + frame * 3;
+    const float delta_d = fs[0], d_term_bg = fs[1], bbx = fs[2];
+    const float* dep = a.depths + frame * M;
+    const float cut = a.occ_cutoff;
+    for (int t = threadIdx.x; t < nr; t += kConsumerThreads) {
+      const float* ri = a.rinfo + (ray0 + t) * 3;
+      const float depth_obs = ri[0], is_fg = ri[1];
+      const bool ray_valid = ri[2] > 0.5f;
+      float trans = 1.f, occ_ray = 0.f, du = 0.f, count = 0.f;
+      for (int m = 0; m < M; ++m) {
+        const int row = t * M + m;
+        const float* p = P + row * 3;
+        const bool valid = (p[0] * p[0] + p[1] * p[1] + p[2] * p[2] < bbx * bbx) && ray_valid;
+        const float occ = valid ? occupancy(sdf[row], a) : 0.f;
+        const float tp = occ * trans;
+        occ_ray += tp;
+        du += dep[m] * tp;
+        trans *= 1.f - occ;
+        wd[row] = trans;  // inclusive transmittance, read back by the suffix pass
+        count += valid ? 1.f : 0.f;
+      }
+      const float term_end = trans;
+      const float d_u = du + d_term_bg * term_end;
+      const bool occluded = a.occlusion_on && is_fg < 0.5f && depth_obs < d_u - a.occlusion_th &&
+                            depth_obs > 0.f;
+      float suffix = 0.f;
+      bool ok = false;
+      for (int m = M - 1; m >= 0; --m) {
+        const int row = t * M + m;
+        const float* p = P + row * 3;
+        const bool valid = (p[0] * p[0] + p[1] * p[1] + p[2] * p[2] < bbx * bbx) && ray_valid;
+        const float s = sdf[row];
+        const float occ = valid ? occupancy(s, a) : 0.f;
+        suffix += wd[row];
+        const float one_minus = 1.f - occ;
+        const float denom = one_minus <= 0.f ? 1.f : one_minus;
+        const float de_do = suffix * delta_d / denom;
+        const float dm_do = term_end / denom;
+        const float do_ds = a.log_occ_on ? -occ * (1.f - occ) / a.sigma : -1.f / (2.f * cut);
+        const bool keep = valid && s > -cut && s < cut && de_do > a.min_grad_th && !occluded;
+        wd[row] = keep ? de_do * do_ds : 0.f;
+        wmk[row] = keep ? dm_do * do_ds : 0.f;
+        ok = ok || keep;
+      }
+      const float target = is_fg > 0.5f ? depth_obs : d_term_bg;
+      rayv[t * 4 + 0] = ok ? target - d_u : 0.f;
+      rayv[t * 4 + 1] = ok ? occ_ray - is_fg : 0.f;
+      rayv[t * 4 + 2] = ok ? 1.f : 0.f;
+      rayv[t * 4 + 3] = count;
     }
-    if (threadIdx.x < 32) {  // warp 0 lists the band rows (non-zero weight), in order
+    consumer_sync();
+
+    // ---- band rows (non-zero weight), in sample order, into the tile's slot ----
+    if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
+      float* slot = a.recs + tile * cap * kRec;
       int nb = 0;
       for (int base = 0; base < rows; base += 32) {
         const int row = base + lane;
         const bool keep = row < rows && (wd[row] != 0.f || wmk[row] != 0.f);
         const unsigned bits = __ballot_sync(0xffffffffu, keep);
-        if (keep) band_rows[nb + __popc(bits & ((1u << lane) - 1u))] = row;
+        if (keep) {
+          float4* rec = reinterpret_cast<float4*>(slot + (size_t)(nb + __popc(bits & ((1u << lane) - 1u))) * kRec);
+          rec[0] = make_float4(__int_as_float((int)(ray0 + row / M)), wd[row], wmk[row],
+                               P[row * 3]);
+          rec[1] = make_float4(P[row * 3 + 1], P[row * 3 + 2], 0.f, 0.f);
+        }
         nb += __popc(bits);
       }
-      if (lane == 0) *n_band = nb;
+      if (lane == 0) a.counts[tile] = nb;
     }
-    __syncthreads();
-    const int nb = *n_band, words = D / 32;
-    const int band_layer = (int)mask_layer_words(D), fwd_layer = (int)mask_layer_words(D, FR);
-    const int band_words = (int)chain_mask_words(D, w.n_mid);
-    for (int c0 = 0; c0 < nb; c0 += kChunk) {
-      const int n = min(kChunk, nb - c0);
-      // gather the chunk's sign words and tanh outputs; rows past n stay zero
-      for (int e = threadIdx.x; e < band_words; e += kThreads) {
-        const int l = e / band_layer, r = (e % band_layer) / words, q = e % words;
-        uint32_t v = 0u;
-        if (r < n) {
-          const int row = band_rows[c0 + r];
-          v = masks[(row / FR) * cmw + l * fwd_layer + (row % FR) * words + q];
-        }
-        band_masks[e] = v;
-      }
-      for (int r = threadIdx.x; r < kChunk; r += kThreads)
-        yb[r] = r < n ? sdf[band_rows[c0 + r]] : 0.f;
-      __syncthreads();
-      chain_input_grad<WT>(w, band_masks, yb, buf);
-      const float* gx = buf.gx;
-      for (int e = threadIdx.x; e < nr * J; e += kThreads) {
-        const int t = e / J, d = e % J;
-        float sd = 0.f, sm = 0.f;
-        for (int r = 0; r < n; ++r) {
-          const int row = band_rows[c0 + r];
-          if (row / M != t) continue;
-          const float v = jac_entry(d, gx + r * in_dim, P + row * 3, C, a.pose_dim);
-          sd = fmaf(v, wd[row], sd);
-          sm = fmaf(v, wmk[row], sm);
-        }
-        Jd[e] += sd;
-        Jm[e] += sm;
-      }
-      __syncthreads();
-    }
-    for (int e = threadIdx.x; e < nr * J; e += kThreads) {
-      const float ok = rayv[(e / J) * 4 + 2];
-      a.jd[ray0 * J + e] = Jd[e] * ok;
-      a.jm[ray0 * J + e] = Jm[e] * ok;
-    }
-  } else {
-    for (int e = threadIdx.x; e < nr * J; e += kThreads) {
-      a.jd[ray0 * J + e] = 0.f;
-      a.jm[ray0 * J + e] = 0.f;
-    }
+    for (int e = threadIdx.x; e < nr * 4; e += kConsumerThreads) a.res[ray0 * 4 + e] = rayv[e];
   }
-  for (int e = threadIdx.x; e < nr * 4; e += kThreads) a.res[ray0 * 4 + e] = rayv[e];
+  cluster_sync();
+}
+
+struct BandArgs {
+  const float* recs;    // [n_tiles][cap][kRec]
+  const int* offsets;   // [n_tiles + 1] exclusive scan of the band counts
+  const float* latent;  // [B][C]
+  float* cd;            // [n_tiles * cap][J] depth contributions of each band row
+  float* cm;            // [n_tiles * cap][J] mask contributions
+  int n_tiles, cap, C, J, pose_dim, rays_per_fruit;
+};
+
+// Packed band rows of the launch, read on the card.
+__device__ __forceinline__ int band_total(const BandArgs& a) { return a.offsets[a.n_tiles]; }
+
+// Shared memory of the band kernel besides the ring and the chain, in
+// 4-byte words: P [64][3], wd, wmk [64], fruit [64].
+constexpr int kBandExtraWords = kSRows * 6;
+
+template <typename WT>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    render_band_kernel(BandArgs a, StreamWeights<WT> w) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = w.D, in_dim = w.in_dim, C = a.C, J = a.J;
+  // group g of chunks (one a block of the cluster) goes to cluster g mod
+  // the clusters of the grid; a cluster without one returns whole, before
+  // its ring exists. The loop carries only g; the total is re-read.
+  constexpr int kGroupRows = kSRows * kCluster;
+  const int groups = (band_total(a) + kGroupRows - 1) / kGroupRows;
+  const int cid = blockIdx.x / kCluster, n_cl = gridDim.x / kCluster;
+  if (cid >= groups) return;
+  Ring ring = ring_init<WT>(smem, w, (groups - cid + n_cl - 1) / n_cl, true);
+  unsigned char* cbase = smem + ring_region_bytes<WT>(D, in_dim);
+  Chain64 c = chain64_carve<WT>(cbase, D, w.n_mid, in_dim, true);
+  float* P = reinterpret_cast<float*>(cbase + chain64_bytes<WT>(D, w.n_mid, in_dim, true));
+  float* wdb = P + kSRows * 3;
+  float* wmb = wdb + kSRows;
+  int* fruit = reinterpret_cast<int*>(wmb + kSRows);
+
+  if (threadIdx.x >= kConsumerThreads) {
+    producer_role(ring);
+    return;
+  }
+  consumer_start();
+  for (int g = blockIdx.x / kCluster; g * kGroupRows < band_total(a); g += gridDim.x / kCluster) {
+    const int q0 = (g * kCluster + (int)(blockIdx.x % kCluster)) * kSRows;
+    const int n = max(0, min(kSRows, band_total(a) - q0));  // 0 on a padding chunk
+    // gather: packed row q lies in the last tile t with offsets[t] <= q
+    for (int r = threadIdx.x; r < kSRows; r += kConsumerThreads) {
+      float wd = 0.f, wm = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
+      int fb = -1;
+      if (r < n) {
+        const int q = q0 + r;
+        int lo = 0, hi = a.n_tiles - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) / 2;
+          if (a.offsets[mid] <= q) lo = mid; else hi = mid - 1;
+        }
+        const float* rec = a.recs + ((size_t)lo * a.cap + (q - a.offsets[lo])) * kRec;
+        fb = __float_as_int(rec[0]) / a.rays_per_fruit;
+        wd = rec[1];
+        wm = rec[2];
+        p0 = rec[3];
+        p1 = rec[4];
+        p2 = rec[5];
+      }
+      fruit[r] = fb;
+      wdb[r] = wd;
+      wmb[r] = wm;
+      P[r * 3] = p0;
+      P[r * 3 + 1] = p1;
+      P[r * 3 + 2] = p2;
+    }
+    consumer_sync();
+    const int k0 = stream_k0<WT>(in_dim);
+    for (int e = threadIdx.x; e < kSRows * k0; e += kConsumerThreads) {
+      const int r = e / k0, i = e % k0, fb = fruit[r];
+      const float v = fb < 0 || i >= in_dim ? 0.f
+                      : i < C              ? a.latent[(long)fb * C + i]
+                                           : P[r * 3 + i - C];
+      chain64_store_x<WT>(c, in_dim, r, i, v);
+    }
+    publish<WT>();
+    chain64_forward<WT>(w, c, ring);
+    chain64_input_grad<WT>(w, c, ring);
+    for (int e = threadIdx.x; e < n * J; e += kConsumerThreads) {
+      const int r = e / J, d = e % J;
+      const float v = jac_entry(d, c.gx + r * in_dim, P + r * 3, C, a.pose_dim);
+      a.cd[(long)q0 * J + e] = v * wdb[r];
+      a.cm[(long)q0 * J + e] = v * wmb[r];
+    }
+    consumer_sync();  // the next chunk's gather overwrites P, wdb, wmb, fruit
+  }
+  cluster_sync();
+}
+
+struct SumArgs {
+  const float* recs;
+  const int* offsets;
+  const float* cd;
+  const float* cm;
+  const float* res;  // ray_ok in column 2
+  float* jd;         // [B][F][R][J]
+  float* jm;
+  int F, R, tr, tiles_x, cap, J;
+};
+
+// One block a tile: each (ray, column) sums its band rows' contributions in
+// sample order, times ray_ok; rays without band rows get zeros.
+__global__ void __launch_bounds__(kSumThreads) render_sum_kernel(SumArgs a) {
+  __shared__ int ray_of[kTileRows];
+  const int b = blockIdx.z, f = blockIdx.y, J = a.J;
+  const int r0 = blockIdx.x * a.tr;
+  const int nr = max(0, min(a.tr, a.R - r0));
+  const long frame = (long)b * a.F + f;
+  const long ray0 = frame * a.R + r0;
+  const long tile = frame * a.tiles_x + blockIdx.x;
+  const int q_lo = a.offsets[tile], nb = a.offsets[tile + 1] - q_lo;
+  for (int i = threadIdx.x; i < nb; i += kSumThreads)
+    ray_of[i] = __float_as_int(a.recs[((size_t)tile * a.cap + i) * kRec]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < nr * J; e += kSumThreads) {
+    const int t = e / J, d = e % J;
+    const int ray = (int)(ray0 + t);
+    float sd = 0.f, sm = 0.f;
+    for (int i = 0; i < nb; ++i) {
+      if (ray_of[i] != ray) continue;
+      sd += a.cd[(long)(q_lo + i) * J + d];
+      sm += a.cm[(long)(q_lo + i) * J + d];
+    }
+    const float ok = a.res[(ray0 + t) * 4 + 2];
+    a.jd[ray0 * J + e] = sd * ok;
+    a.jm[ray0 * J + e] = sm * ok;
+  }
 }
 
 template <typename WT>
-static int launch(const RenderArgs& a, const DecoderWeights<WT>& w, int B, size_t smem,
-                  cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<WT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((a.R + a.tr - 1) / a.tr), (unsigned)a.F, (unsigned)B);
-  fused_render_kernel<WT><<<grid, kThreads, smem, stream>>>(a, w);
-  return (int)cudaGetLastError();
+static size_t fwd_smem(int D, int n_mid, int in_dim, int C, int tr) {
+  return ring_region_bytes<WT>(D, in_dim, kFwdSlots<WT>) +
+         chain64_bytes<WT>(D, n_mid, in_dim, false) +
+         fwd_extra_words(C, tr) * 4;
+}
+template <typename WT>
+static size_t band_smem(int D, int n_mid, int in_dim) {
+  return ring_region_bytes<WT>(D, in_dim) + chain64_bytes<WT>(D, n_mid, in_dim, true) +
+         kBandExtraWords * 4;
 }
 
-// Dynamic shared memory of one block, in bytes (the wrapper sizes TR by it).
-extern "C" long horti_fused_render_smem(int D, int n_mid, int in_dim, int C, int J, int tr, int M,
-                                        int bf16) {
-  const int n_chunks = render_units(tr, M, bf16);
-  const size_t chain = bf16 ? chain_buf_bytes<__nv_bfloat16, kFwdRows<__nv_bfloat16>>(D, in_dim)
-                            : chain_buf_bytes<float, kFwdRows<float>>(D, in_dim);
-  return (long)(chain + render_smem_words(C, J, tr, n_chunks) * 4 +
-                (size_t)(n_chunks + 1) * chain_mask_words(D, n_mid) * sizeof(uint32_t));
+// Dynamic shared memory of a block of the forward (kind 0) or band (kind 1)
+// kernel, in bytes (the wrapper checks it against the card's limit).
+extern "C" long horti_render_smem(int kind, int D, int n_mid, int in_dim, int C, int tr, int bf16) {
+  if (kind == 0)
+    return (long)(bf16 ? fwd_smem<__nv_bfloat16>(D, n_mid, in_dim, C, tr)
+                       : fwd_smem<float>(D, n_mid, in_dim, C, tr));
+  return (long)(bf16 ? band_smem<__nv_bfloat16>(D, n_mid, in_dim)
+                     : band_smem<float>(D, n_mid, in_dim));
 }
 
-extern "C" int horti_fused_render(const void* pts, const void* rinfo, const void* depths,
-                                  const void* fscal, const void* active, const void* latent, int B,
-                                  int F, int R, int M, int C, int tr, int pose_dim, int scale_on,
-                                  int log_occ_on, int occlusion_on, float occ_cutoff, float sigma,
-                                  float occlusion_th, float min_grad_th, int D, int n_mid, int li,
-                                  int bf16, const void* w0, const void* w0t, const void* w0tk,
-                                  const void* wm, const void* wmt, const void* wl, const void* b0,
-                                  const void* bm, float bl, void* jd, void* jm, void* res,
-                                  void* stream) {
-  if (D % 128 != 0 || D > kMaxWidth || C + 3 > D || tr < 1 || M < 2 || F > 65535 || B > 65535)
+static bool dims_ok(int D, int C, int in_dim) {
+  return D % 128 == 0 && D <= kMaxWidth && C + 3 == in_dim && in_dim <= 128 && in_dim <= D;
+}
+
+template <typename WT>
+static StreamWeights<WT> stream_weights(const void* fwd, const void* bwd, const void* wl,
+                                        const void* b0, const void* bm, float bl, int D,
+                                        int n_mid, int li, int in_dim) {
+  return StreamWeights<WT>{(const WT*)fwd, (const WT*)bwd, (const WT*)wl, (const float*)b0,
+                           (const float*)bm, bl, D, n_mid, li, in_dim};
+}
+
+// Launch 1: residuals [B][F][R][4], band records and counts. tiles_x (a
+// multiple of kCluster) x tr covers R.
+extern "C" int horti_render_forward(const void* pts, const void* rinfo, const void* depths,
+                                    const void* fscal, const void* active, const void* latent,
+                                    int B, int F, int R, int M, int C, int tr, int tiles_x,
+                                    int pose_dim, int log_occ_on, int occlusion_on,
+                                    float occ_cutoff, float sigma, float occlusion_th,
+                                    float min_grad_th, int D, int n_mid, int li, int bf16,
+                                    const void* fwd, const void* bwd, const void* wl,
+                                    const void* b0, const void* bm, float bl, void* res,
+                                    void* recs, void* counts, void* stream) {
+  if (!dims_ok(D, C, C + 3) || tr < 1 || tr * M > kTileRows || M < 2 ||
+      tiles_x % kCluster != 0 || (long)tiles_x * tr < R || F > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || F == 0 || R == 0) return (int)cudaSuccess;
   RenderArgs a;
@@ -307,34 +412,80 @@ extern "C" int horti_fused_render(const void* pts, const void* rinfo, const void
   a.fscal = (const float*)fscal;
   a.active = (const float*)active;
   a.latent = (const float*)latent;
-  a.jd = (float*)jd;
-  a.jm = (float*)jm;
   a.res = (float*)res;
+  a.recs = (float*)recs;
+  a.counts = (int*)counts;
   a.F = F;
   a.R = R;
   a.M = M;
   a.C = C;
-  a.J = pose_dim + C;
   a.tr = tr;
-  a.n_chunks = render_units(tr, M, bf16);
+  a.tiles_x = tiles_x;
   a.pose_dim = pose_dim;
-  a.scale_on = scale_on;
   a.log_occ_on = log_occ_on;
   a.occlusion_on = occlusion_on;
   a.occ_cutoff = occ_cutoff;
   a.sigma = sigma;
   a.occlusion_th = occlusion_th;
   a.min_grad_th = min_grad_th;
-  const size_t smem = (size_t)horti_fused_render_smem(D, n_mid, C + 3, C, a.J, tr, M, bf16);
+  const dim3 grid((unsigned)tiles_x, (unsigned)F, (unsigned)B);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int in_dim = C + 3;
   if (bf16) {
     using T = __nv_bfloat16;
-    DecoderWeights<T> w{(const T*)w0, (const T*)w0t, (const T*)w0tk, (const T*)wm, (const T*)wmt,
-                        (const T*)wl, (const float*)b0, (const float*)bm, bl, D, n_mid, li, C + 3};
-    return launch<T>(a, w, B, smem, s);
+    return launch_cluster(render_forward_kernel<T>, grid, fwd_smem<T>(D, n_mid, in_dim, C, tr), s,
+                          a, stream_weights<T>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim));
   }
-  DecoderWeights<float> w{(const float*)w0, (const float*)w0t, (const float*)w0tk,
-                          (const float*)wm, (const float*)wmt, (const float*)wl, (const float*)b0,
-                          (const float*)bm, bl, D, n_mid, li, C + 3};
-  return launch<float>(a, w, B, smem, s);
+  return launch_cluster(render_forward_kernel<float>, grid, fwd_smem<float>(D, n_mid, in_dim, C, tr),
+                        s, a, stream_weights<float>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim));
+}
+
+template <typename WT>
+static int launch_band(const BandArgs& a, const StreamWeights<WT>& w, cudaStream_t s) {
+  const size_t smem = band_smem<WT>(w.D, w.n_mid, w.in_dim);
+  static size_t wave_smem = 0;  // the wave of the last shared-memory size asked
+  static int wave = 0;
+  if (smem != wave_smem) {
+    wave = max_active_clusters(render_band_kernel<WT>, smem);
+    wave_smem = smem;
+  }
+  if (wave <= 0) return wave < 0 ? -wave : (int)cudaErrorInvalidConfiguration;
+  // no more clusters than the band could fill if every sample were in it
+  const long worst = ((long)a.n_tiles * a.cap + kSRows * kCluster - 1) / (kSRows * kCluster);
+  const int clusters = (int)(worst < wave ? worst : wave);
+  return launch_cluster(render_band_kernel<WT>, dim3((unsigned)(clusters * kCluster)), smem, s, a,
+                        w);
+}
+
+// Launch 2: the [J] contributions of the packed band rows, as many as
+// offsets[n_tiles] (read on the card); cd, cm hold n_tiles x cap rows.
+extern "C" int horti_render_band(const void* recs, const void* offsets, int n_tiles, int cap,
+                                 const void* latent, int C, int pose_dim, int rays_per_fruit,
+                                 int D, int n_mid, int li, int bf16, const void* fwd,
+                                 const void* bwd, const void* wl, const void* b0, const void* bm,
+                                 float bl, void* cd, void* cm, void* stream) {
+  if (!dims_ok(D, C, C + 3) || n_tiles < 1 || cap < 1 || (long)n_tiles * cap >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  BandArgs a{(const float*)recs, (const int*)offsets, (const float*)latent, (float*)cd, (float*)cm,
+             n_tiles, cap, C, pose_dim + C, pose_dim, rays_per_fruit};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int in_dim = C + 3;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch_band(a, stream_weights<T>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim), s);
+  }
+  return launch_band(a, stream_weights<float>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim), s);
+}
+
+// Launch 3: jd, jm [B][F][R][J] from the contributions.
+extern "C" int horti_render_sum(const void* recs, const void* offsets, const void* cd,
+                                const void* cm, const void* res, int B, int F, int R, int tr,
+                                int tiles_x, int cap, int J, void* jd, void* jm, void* stream) {
+  if (tr < 1 || cap > kTileRows || F > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0 || F == 0 || R == 0) return (int)cudaSuccess;
+  SumArgs a{(const float*)recs, (const int*)offsets, (const float*)cd, (const float*)cm,
+            (const float*)res, (float*)jd, (float*)jm, F, R, tr, tiles_x, cap, J};
+  render_sum_kernel<<<dim3((unsigned)tiles_x, (unsigned)F, (unsigned)B), kSumThreads, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }

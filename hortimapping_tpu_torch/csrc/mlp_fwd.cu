@@ -35,7 +35,7 @@ __global__ void __launch_bounds__(kThreads)
                       r < n_rows && i < in_dim ? xin[r * in_dim + i] : 0.f);
   }
   __syncthreads();
-  chain_forward<WT, ROWS>(w, buf, nullptr);
+  chain_forward<WT, ROWS>(w, buf);
   for (int r = threadIdx.x; r < ROWS; r += kThreads)
     if (row0 + r < n_rows) sdf[row0 + r] = buf.y[r];
 }
@@ -54,7 +54,7 @@ static int launch(const float* x, int n_rows, const DecoderWeights<WT>& w, float
 }
 
 extern "C" int horti_mlp_fwd(const void* x, int n_rows, int in_dim, int D, int n_mid, int li,
-                             int bf16, const void* w0, const void* w0t, const void* w0tk,
+                             int bf16, const void* w0, const void* w0tk,
                              const void* wm, const void* wmt, const void* wl, const void* b0,
                              const void* bm, float bl, void* sdf, void* stream) {
   if (D % 128 != 0 || D > kMaxWidth || in_dim > D || n_mid < 0) return (int)cudaErrorInvalidValue;
@@ -62,11 +62,11 @@ extern "C" int horti_mlp_fwd(const void* x, int n_rows, int in_dim, int D, int n
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
-    DecoderWeights<T> w{(const T*)w0, (const T*)w0t, (const T*)w0tk, (const T*)wm, (const T*)wmt,
+    DecoderWeights<T> w{(const T*)w0, (const T*)w0tk, (const T*)wm, (const T*)wmt,
                         (const T*)wl, (const float*)b0, (const float*)bm, bl, D, n_mid, li, in_dim};
     return launch<T>((const float*)x, n_rows, w, (float*)sdf, s);
   }
-  DecoderWeights<float> w{(const float*)w0, (const float*)w0t, (const float*)w0tk,
+  DecoderWeights<float> w{(const float*)w0, (const float*)w0tk,
                           (const float*)wm, (const float*)wmt, (const float*)wl, (const float*)b0,
                           (const float*)bm, bl, D, n_mid, li, in_dim};
   return launch<float>((const float*)x, n_rows, w, (float*)sdf, s);

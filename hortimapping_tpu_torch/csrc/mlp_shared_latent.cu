@@ -45,7 +45,7 @@ __global__ void __launch_bounds__(kThreads)
     chain_store_x<WT>(buf, e / buf.xcols, i, v);
   }
   __syncthreads();
-  chain_forward<WT, ROWS>(w, buf, nullptr);
+  chain_forward<WT, ROWS>(w, buf);
   float* o = out + (size_t)blockIdx.y * n_pts;
   for (int r = threadIdx.x; r < ROWS; r += kThreads)
     if (row0 + r < n_pts) o[row0 + r] = buf.y[r];
@@ -66,7 +66,7 @@ static int launch(const float* latents, int n_codes, const float* pts, int n_pts
 
 extern "C" int horti_mlp_shared_latent(const void* latents, int n_codes, const void* pts,
                                        int n_pts, int in_dim, int D, int n_mid, int li, int bf16,
-                                       const void* w0, const void* w0t, const void* w0tk,
+                                       const void* w0, const void* w0tk,
                                        const void* wm, const void* wmt, const void* wl,
                                        const void* b0, const void* bm, float bl, void* out,
                                        void* stream) {
@@ -76,11 +76,11 @@ extern "C" int horti_mlp_shared_latent(const void* latents, int n_codes, const v
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
-    DecoderWeights<T> w{(const T*)w0, (const T*)w0t, (const T*)w0tk, (const T*)wm, (const T*)wmt,
+    DecoderWeights<T> w{(const T*)w0, (const T*)w0tk, (const T*)wm, (const T*)wmt,
                         (const T*)wl, (const float*)b0, (const float*)bm, bl, D, n_mid, li, in_dim};
     return launch<T>((const float*)latents, n_codes, (const float*)pts, n_pts, w, (float*)out, s);
   }
-  DecoderWeights<float> w{(const float*)w0, (const float*)w0t, (const float*)w0tk,
+  DecoderWeights<float> w{(const float*)w0, (const float*)w0tk,
                           (const float*)wm, (const float*)wmt, (const float*)wl, (const float*)b0,
                           (const float*)bm, bl, D, n_mid, li, in_dim};
   return launch<float>((const float*)latents, n_codes, (const float*)pts, n_pts, w, (float*)out, s);

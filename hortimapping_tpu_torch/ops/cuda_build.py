@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -94,6 +95,24 @@ def build_log(name: str) -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def ptxas_summary(log: str):
+    """One line per kernel of an nvcc -Xptxas -v log: registers, static
+    shared memory and spills."""
+    out, name, frame = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z(\d+)(\w+))'", line)
+        if m:
+            base = m.group(3)[:int(m.group(2))]
+            rest = m.group(3)[int(m.group(2)):]
+            name = base + ("<bf16>" if "bfloat16" in rest else "<f32>" if rest.startswith("If") else "")
+            frame = ""
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()} | {frame}")
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,11 +5,12 @@ weight packing they share.
 Counterpart of `hortimapping_tpu/ops/pallas_mlp.py` (`supported`,
 `pack_params`, `mlp_sdf_and_input_grad`, `mlp_sdf`,
 `mlp_sdf_shared_latent`, `PallasDecoder`). The kernels are
-`csrc/mlp_fwd_grad.cu`, `csrc/mlp_fwd.cu` and `csrc/mlp_shared_latent.cu`,
-all over the chain in `csrc/decoder_chain.cuh`. A CUDA tensor goes to the
-kernel and nowhere else; only a CPU tensor takes the plain version
-(`*_plain`), which writes out the same forward and reverse chain (not
-autograd) with the same roundings.
+`csrc/mlp_fwd_grad.cu` (over the Hopper chain of `csrc/stream_chain.cuh`,
+which the render kernels share), `csrc/mlp_fwd.cu` and
+`csrc/mlp_shared_latent.cu` (over `csrc/decoder_chain.cuh`). A CUDA tensor
+goes to the kernel and nowhere else; only a CPU tensor takes the plain
+version (`*_plain`), which writes out the same forward and reverse chain
+(not autograd) with the same roundings.
 """
 
 from __future__ import annotations
@@ -26,8 +27,14 @@ MAX_WIDTH = 512      # widest hidden layer the kernels take (decoder_chain.cuh k
 PLAIN_ROWS = 1 << 16  # rows per pass of the plain chain (bounds its activations)
 MAX_CODES = 65535    # codes one launch of the shared-latent kernel takes (grid.y)
 
-# weight tensors of a PackedDecoder, in the order the C entries take them
-WEIGHT_NAMES = ("w0", "w0t", "w0tk", "wm", "wmt", "wl", "b0", "bm")
+CLUSTER = 2          # blocks of a cluster sharing each weight fetch (stream_chain.cuh kCluster)
+STAGE_K_BF16 = 32    # k rows of a stage of the weight streams (stream_chain.cuh StreamCfg::kK)
+STAGE_K_F32 = 8
+
+# weight tensors of a PackedDecoder, in the order the C entries take them:
+# the forward-only kernels (B3, B4), and the weight-stream kernels (B1, B2)
+WEIGHT_NAMES = ("w0", "w0tk", "wm", "wmt", "wl", "b0", "bm")
+STREAM_NAMES = ("fwd_stream", "bwd_stream", "wl", "b0", "bm")
 
 # launches of each CUDA kernel since its count was last set to 0: B1
 # (fwd+input grad), B3 (forward), B4 (shared-latent forward)
@@ -56,7 +63,6 @@ class PackedDecoder(NamedTuple):
     concat becomes a write into them."""
 
     w0: torch.Tensor    # [in_dim, D]
-    w0t: torch.Tensor   # [D, in_dim rounded up to 4], zero-padded (f32 backward)
     w0tk: torch.Tensor  # [D, in_dim rounded up to 16], zero-padded (tensor-core forward)
     wm: torch.Tensor    # [n_mid, D, D] ([in, out])
     wmt: torch.Tensor   # [n_mid, D, D] ([out, in])
@@ -68,6 +74,8 @@ class PackedDecoder(NamedTuple):
     n_mid: int
     li: int             # latent_in layer, 0 = none
     in_dim: int
+    fwd_stream: torch.Tensor  # [*] forward weight stream (`stream_layers`), as k-stages
+    bwd_stream: torch.Tensor  # [*] backward weight stream
 
     @property
     def bf16(self) -> bool:
@@ -76,6 +84,60 @@ class PackedDecoder(NamedTuple):
     def weight_ptrs(self) -> Tuple[int, ...]:
         """Device pointers of the weight tensors, in the C entries' order."""
         return tuple(getattr(self, n).data_ptr() for n in WEIGHT_NAMES)
+
+    def stream_ptrs(self) -> Tuple[int, ...]:
+        """Device pointers of the weight streams, head and biases."""
+        return tuple(getattr(self, n).data_ptr() for n in STREAM_NAMES)
+
+
+def stream_dims(in_dim: int, bf16: bool) -> Tuple[int, int]:
+    """(K of layer 0 in the forward stream, N of layer 0 in the backward
+    stream), zero-padded as stream_chain.cuh `stream_k0` / `stream_n0`."""
+    kK = STAGE_K_BF16 if bf16 else STAGE_K_F32
+    return -(-in_dim // kK) * kK, (128 if bf16 else -(-in_dim // 4) * 4)
+
+
+def stream_layers(D: int, n_mid: int, in_dim: int, bf16: bool):
+    """(K, N) of each matrix W (out = in @ W) of the forward and of the
+    backward stream, in the order a chunk consumes them."""
+    k0, n0 = stream_dims(in_dim, bf16)
+    return [(k0, D)] + [(D, D)] * n_mid, [(D, D)] * n_mid + [(D, n0)]
+
+
+def _stages(W: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """W [K, N] as the stages the kernel's ring receives, flat. f32: rows
+    of W in order (a stage is STAGE_K_F32 rows). bf16 (wgmma's B operand, K-major, no
+    swizzle): per 32-row stage, two k16 steps, each [N/8 groups][2 k-chunks]
+    of 8 x 8 core matrices (8 n, 8 consecutive k each)."""
+    W = W.to(dtype)
+    if dtype != torch.bfloat16:
+        return W.reshape(-1)
+    K, N = W.shape
+    return (W.t().reshape(N // 8, 8, K // 32, 2, 2, 8)
+            .permute(2, 3, 0, 4, 1, 5).reshape(-1))
+
+
+def _unstage(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The inverse of `_stages`: W [K, N]."""
+    if flat.dtype != torch.bfloat16:
+        return flat.reshape(K, N)
+    return flat.reshape(K // 32, 2, N // 8, 2, 8, 8).permute(2, 4, 0, 1, 3, 5).reshape(N, K).t()
+
+
+def unpack_streams(pk: "PackedDecoder"):
+    """The matrices W [K, N] of the forward and of the backward stream,
+    read back from the packed stages (the tests hold them against w0, wm
+    and wmt)."""
+    out = []
+    for flat, layers in zip((pk.fwd_stream, pk.bwd_stream),
+                            stream_layers(pk.D, pk.n_mid, pk.in_dim, pk.bf16)):
+        mats, at = [], 0
+        for K, N in layers:
+            mats.append(_unstage(flat[at:at + K * N], K, N))
+            at += K * N
+        assert at == flat.numel()
+        out.append(mats)
+    return tuple(out)
 
 
 def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.float32) -> PackedDecoder:
@@ -104,11 +166,19 @@ def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.fl
     head = params[f"lin{n_lin - 1}"]
     w0tk = torch.zeros(D, -(-in_dim // 16) * 16, dtype=dtype, device=dev)
     w0tk[:, :in_dim] = w0.t()
-    w0t = torch.zeros(D, -(-in_dim // 4) * 4, dtype=dtype, device=dev)
-    w0t[:, :in_dim] = w0.t()
+    # the weight streams of B1 and B2 (stream_layers): forward layer 0 with
+    # its K padded, layers 1..n_mid as [in, out]; backward layers n_mid..1
+    # as [out, in], layer 0 as [D, in] with its N padded
+    k0, n0 = stream_dims(in_dim, dtype == torch.bfloat16)
+    w0_k = torch.zeros(k0, D, dtype=dtype, device=dev)
+    w0_k[:in_dim] = w0
+    w0_n = torch.zeros(D, n0, dtype=dtype, device=dev)
+    w0_n[:, :in_dim] = w0.t()
+    fwd_stream = torch.cat([_stages(w0_k, dtype)] + [_stages(w, dtype) for w in wm])
+    bwd_stream = torch.cat([_stages(wm[j].t(), dtype) for j in reversed(range(len(wm)))]
+                           + [_stages(w0_n, dtype)])
     return PackedDecoder(
         w0=w0.contiguous(),
-        w0t=w0t,
         w0tk=w0tk,
         wm=wm.contiguous(),
         wmt=wm.transpose(1, 2).contiguous(),
@@ -120,6 +190,8 @@ def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.fl
         n_mid=n_lin - 2,
         li=spec.latent_in[0] if spec.latent_in else 0,
         in_dim=in_dim,
+        fwd_stream=fwd_stream.contiguous(),
+        bwd_stream=bwd_stream.contiguous(),
     )
 
 
@@ -173,7 +245,7 @@ def _chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torc
         if j + 1 == li:
             gx = gx + _round(g[:, D - k:], bf16)
     g = _round(g * masks[0], bf16)
-    return y, gx + g @ w(pk.w0t[:, :k])
+    return y, gx + g @ w(pk.w0).t()
 
 
 def chain_plain(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,7 +275,7 @@ def shared_latent_plain(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Ten
 
 
 def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
-    for name in WEIGHT_NAMES:
+    for name in WEIGHT_NAMES + STREAM_NAMES:
         t = getattr(pk, name)
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"packed weight {name} must be contiguous on {x.device}")
@@ -213,10 +285,12 @@ def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WEIGHTS = [_P] * len(WEIGHT_NAMES) + [ctypes.c_float]   # w0 .. bm, bl
+_STREAMS = [_P] * len(STREAM_NAMES) + [ctypes.c_float]   # fwd, bwd, wl, b0, bm, bl
 # C entry and argument types of each kernel library
 _ENTRIES = {
-    # x, n_rows, in_dim, D, n_mid, li, bf16, weights, sdf, grad, stream
-    "mlp_fwd_grad": ("horti_mlp_fwd_grad", [_P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P, _P]),
+    # x, rows_per_lane, n_lanes, active, in_dim, D, n_mid, li, bf16, streams, sdf, grad, stream
+    "mlp_fwd_grad": ("horti_mlp_fwd_grad",
+                     [_P, _I, _I, _P, _I, _I, _I, _I, _I, *_STREAMS, _P, _P, _P]),
     # x, n_rows, in_dim, D, n_mid, li, bf16, weights, sdf, stream
     "mlp_fwd": ("horti_mlp_fwd", [_P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P]),
     # latents, n_codes, pts, n_pts, in_dim, D, n_mid, li, bf16, weights, out, stream
@@ -241,19 +315,38 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor,
+                   active: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1 on rows x [N, in_dim]: `active` None, or [B] f32 with N = B x rows
+    a lane (a block of a frozen lane writes zeros)."""
     global launches
     _check_packed(pk, x)
     n = x.shape[0]
+    lanes = 1 if active is None else active.shape[0]
+    if active is not None and active.device != x.device:
+        raise ValueError("lane_active must lie on the inputs' device")
     sdf = torch.empty(n, dtype=torch.float32, device=x.device)
     grad = torch.empty(n, pk.in_dim, dtype=torch.float32, device=x.device)
     rc = _entry("mlp_fwd_grad")(
-        x.data_ptr(), n, pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        *pk.weight_ptrs(), pk.bl, sdf.data_ptr(), grad.data_ptr(), _stream(x),
+        x.data_ptr(), n // lanes, lanes, None if active is None else active.data_ptr(),
+        pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
+        sdf.data_ptr(), grad.data_ptr(), _stream(x),
     )
     cuda_build.check(rc, "horti_mlp_fwd_grad")
     launches += 1
     return sdf, grad
+
+
+def _fwd_grad_plain(pk: PackedDecoder, x: torch.Tensor,
+                    active: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of `_fwd_grad_cuda`: the chain on every row, then
+    zeros on the rows of frozen lanes."""
+    sdf, grad = chain_plain(pk, x)
+    if active is None:
+        return sdf, grad
+    keep = (active > 0.5).repeat_interleave(x.shape[0] // active.shape[0])
+    return (torch.where(keep, sdf, torch.zeros_like(sdf)),
+            torch.where(keep[:, None], grad, torch.zeros_like(grad)))
 
 
 def _fwd_cuda(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
@@ -295,19 +388,34 @@ def _flatten(pk: PackedDecoder, inputs: torch.Tensor):
     return inputs.reshape(-1, pk.in_dim).float().contiguous(), lead
 
 
-def mlp_sdf_and_input_grad(pk: PackedDecoder, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., C+3) -> (sdf (...), d sdf / d input (..., C+3)). CUDA tensors go
-    to the kernel; CPU tensors to the plain version."""
+def _lane_mask(lane_active: Optional[torch.Tensor], lead) -> Optional[torch.Tensor]:
+    if lane_active is None:
+        return None
+    if len(lead) < 1 or lane_active.numel() != lead[0]:
+        raise ValueError(f"lane_active of {lane_active.numel()} lanes for inputs {tuple(lead)}")
+    return lane_active.reshape(-1).to(torch.float32).contiguous()
+
+
+def mlp_sdf_and_input_grad(pk: PackedDecoder, inputs: torch.Tensor,
+                           lane_active: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., C+3) -> (sdf (...), d sdf / d input (..., C+3)). With
+    `lane_active` [B] (bool) the inputs are [B, ..., C+3] and the rows of a
+    frozen lane (False) come out zero, the kernel skipping them. CUDA tensors
+    go to the kernel; CPU tensors to the plain version."""
     x, lead = _flatten(pk, inputs)
-    sdf, grad = _fwd_grad_cuda(pk, x) if x.is_cuda else chain_plain(pk, x)
+    active = _lane_mask(lane_active, lead)
+    sdf, grad = (_fwd_grad_cuda if x.is_cuda else _fwd_grad_plain)(pk, x, active)
     return sdf.reshape(lead), grad.reshape(lead + (pk.in_dim,))
 
 
-def mlp_sdf_and_input_grad_plain(pk: PackedDecoder, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def mlp_sdf_and_input_grad_plain(pk: PackedDecoder, inputs: torch.Tensor,
+                                 lane_active: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the same function, on any device (the
     CPU path, and the oracle the card compares the kernel with)."""
     x, lead = _flatten(pk, inputs)
-    sdf, grad = chain_plain(pk, x)
+    sdf, grad = _fwd_grad_plain(pk, x, _lane_mask(lane_active, lead))
     return sdf.reshape(lead), grad.reshape(lead + (pk.in_dim,))
 
 

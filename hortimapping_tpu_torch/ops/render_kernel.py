@@ -3,9 +3,13 @@
 Counterpart of `hortimapping_tpu/ops/pallas_render.py::fused_render`, with
 the batch written out: one call covers [B fruits, F frames, R rays, M
 samples] (the JAX package vmaps a single-frame kernel over frames and
-fruits). The kernel is `csrc/fused_render.cu`; a CUDA tensor goes to it and
-nowhere else, a CPU tensor takes `fused_render_plain`, the dense math of
-`ops/render.py` returning the same outputs.
+fruits). The kernel is `csrc/fused_render.cu`, three launches: forward and
+render math per ray tile (`render_forward`), the input-gradient backward
+over the band rows of the whole launch packed in tile order
+(`band_offsets`, `render_band`), and the per-ray sums (`render_sum`). A CUDA
+tensor goes to them and nowhere else, a CPU tensor takes
+`fused_render_plain`, the dense math of `ops/render.py` returning the same
+outputs.
 
 Outputs: jd, jm [B, F, R, pose_dim + C] per-ray Jacobian sums (pose block
 first) and res [B, F, R, 4] = (res_d, res_m, ray_ok, in-radius count). The
@@ -15,19 +19,29 @@ frame-level `min_valid_sample` gate is the caller's epilogue.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from hortimapping_tpu_torch.ops import cuda_build
-from hortimapping_tpu_torch.ops.mlp_kernels import WEIGHT_NAMES, PackedDecoder, chain_plain
+from hortimapping_tpu_torch.ops import mlp_kernels
+from hortimapping_tpu_torch.ops.mlp_kernels import STREAM_NAMES, PackedDecoder, chain_plain
 from hortimapping_tpu_torch.ops.sdf import logistic_sigma
 
-TILE_ROWS = 128             # samples per block: TR = TILE_ROWS // M rays
+TILE_ROWS = 128             # samples per block: TR = TILE_ROWS // M rays (fused_render.cu kTileRows)
 MAX_SMEM = 232448           # dynamic shared memory a block may use on the H100
+REC_FLOATS = 8              # floats a band record (fused_render.cu kRec)
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the three CUDA kernels since the counts were last set to 0:
+# forward + render (one per call: the count of the TPU kernel's port), band
+# backward, per-ray sums
 launches = 0
+launches_band = 0
+launches_sum = 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def _frame_scalars(depths: torch.Tensor, bbx_radius: torch.Tensor):
@@ -139,40 +153,79 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("fused_render")
     if not _argtypes_set:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.horti_fused_render.restype = i
-        lib.horti_fused_render.argtypes = [
+        streams = [p, p, p, p, p, fl]          # fwd, bwd, wl, b0, bm, bl
+        lib.horti_render_forward.restype = i
+        lib.horti_render_forward.argtypes = [
             p, p, p, p, p, p,                  # pts, rinfo, depths, fscal, active, latent
-            i, i, i, i, i, i,                  # B, F, R, M, C, tr
-            i, i, i, i,                        # pose_dim, scale_on, log_occ_on, occlusion_on
+            i, i, i, i, i, i, i,               # B, F, R, M, C, tr, tiles_x
+            i, i, i,                           # pose_dim, log_occ_on, occlusion_on
             fl, fl, fl, fl,                    # occ_cutoff, sigma, occlusion_th, min_grad_th
-            i, i, i, i,                        # D, n_mid, li, bf16
-            p, p, p, p, p, p, p, p, fl,        # w0, w0t, w0tk, wm, wmt, wl, b0, bm, bl
-            p, p, p, p,                        # jd, jm, res, stream
+            i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
+            p, p, p, p,                        # res, recs, counts, stream
         ]
-        lib.horti_fused_render_smem.restype = ctypes.c_long
-        lib.horti_fused_render_smem.argtypes = [i] * 8
+        lib.horti_render_band.restype = i
+        lib.horti_render_band.argtypes = [
+            p, p, i, i, p,                     # recs, offsets, n_tiles, cap, latent
+            i, i, i,                           # C, pose_dim, rays_per_fruit
+            i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
+            p, p, p,                           # cd, cm, stream
+        ]
+        lib.horti_render_sum.restype = i
+        lib.horti_render_sum.argtypes = [
+            p, p, p, p, p,                     # recs, offsets, cd, cm, res
+            i, i, i, i, i, i, i,               # B, F, R, tr, tiles_x, cap, J
+            p, p, p,                           # jd, jm, stream
+        ]
+        lib.horti_render_smem.restype = ctypes.c_long
+        lib.horti_render_smem.argtypes = [i] * 7
         _argtypes_set = True
     return lib
 
 
-def ray_tile(pk: PackedDecoder, C: int, pose_dim: int, M: int) -> int:
-    """Rays per block: whole rays filling TILE_ROWS samples, shrunk until the
-    block's shared memory fits."""
-    lib = _lib()
+def tiling(R: int, M: int) -> Tuple[int, int]:
+    """(tr, tiles_x): whole rays filling TILE_ROWS samples a tile, and the
+    tiles of a frame padded to whole clusters (the last real tile may be
+    ragged, the padding tiles are empty)."""
+    if M > TILE_ROWS:
+        raise ValueError(f"M={M} samples per ray exceed a tile of {TILE_ROWS}")
     tr = max(1, TILE_ROWS // M)
-    while True:
-        smem = lib.horti_fused_render_smem(pk.D, pk.n_mid, pk.in_dim, C, pose_dim + C, tr, M,
-                                           int(pk.bf16))
-        if smem <= MAX_SMEM:
-            return tr
-        if tr == 1:
-            raise ValueError(f"M={M} samples per ray need {smem} bytes of shared memory")
-        tr -= 1
+    return tr, _round_up(-(-R // tr), mlp_kernels.CLUSTER)
 
 
-def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
-                       lane_active, *, pose_dim, scale_on, log_occ_on, occ_cutoff,
-                       occlusion_on, occlusion_th, min_grad_th):
+def ray_tile(pk: PackedDecoder, C: int, pose_dim: int, M: int) -> int:
+    """Rays per block (`tiling`); raises where a block of the forward or the
+    band kernel would not fit in shared memory."""
+    tr, _ = tiling(1, M)
+    lib = _lib()
+    for kind in (0, 1):
+        smem = lib.horti_render_smem(kind, pk.D, pk.n_mid, pk.in_dim, C, tr, int(pk.bf16))
+        if smem > MAX_SMEM:
+            raise ValueError(f"the decoder needs {smem} bytes of shared memory a block")
+    return tr
+
+
+class RenderLaunches(NamedTuple):
+    """What the three launches of one call share: the tiling and the
+    scratch (band records and counts) the forward fills."""
+
+    B: int
+    F: int
+    R: int
+    M: int
+    C: int
+    J: int
+    tr: int
+    tiles_x: int
+    res: torch.Tensor      # [B, F, R, 4]
+    recs: torch.Tensor     # [n_tiles, tr * M, 8] band records
+    counts: torch.Tensor   # [n_tiles] int32 band rows a tile
+
+
+def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
+                   lane_active, *, pose_dim, scale_on, log_occ_on, occ_cutoff,
+                   occlusion_on, occlusion_th, min_grad_th) -> RenderLaunches:
+    """Launch 1: the forward and the render math of every tile; the
+    residuals and each tile's band records."""
     global launches
     B, F, R, M, _ = pts.shape
     C = latent.shape[-1]
@@ -181,11 +234,13 @@ def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx
     for name, t in (("pts", pts), ("latent", latent), ("depths", depths)):
         if t.dtype != f32 or t.device != dev:
             raise ValueError(f"{name} must be float32 on {dev}")
-    for name in WEIGHT_NAMES:
+    for name in STREAM_NAMES:
         if getattr(pk, name).device != dev:
             raise ValueError(f"packed weight {name} must be on {dev}")
     if pk.in_dim != C + 3 or M < 2:
         raise ValueError(f"latent width {C} / samples {M} do not fit the decoder")
+    if B * F * R * M >= 2 ** 31:
+        raise ValueError("at most 2^31 samples a launch")
     delta_d, d_term_bg, bbx = _frame_scalars(depths, bbx_radius)
     rinfo = torch.stack(
         [depth_obs.to(f32), is_fg.to(f32).expand(B, F, R), ray_valid.to(f32)], dim=-1
@@ -196,24 +251,82 @@ def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx
     pts = pts.contiguous()
     latent = latent.contiguous()
     depths = depths.contiguous()
-    J = pose_dim + C
-    jd = torch.empty(B, F, R, J, dtype=f32, device=dev)
-    jm = torch.empty(B, F, R, J, dtype=f32, device=dev)
+    ray_tile(pk, C, pose_dim, M)
+    tr, tiles_x = tiling(R, M)
+    n_tiles = tiles_x * F * B
     res = torch.empty(B, F, R, 4, dtype=f32, device=dev)
-    tr = ray_tile(pk, C, pose_dim, M)
-    rc = _lib().horti_fused_render(
+    recs = torch.empty(n_tiles, tr * M, REC_FLOATS, dtype=f32, device=dev)
+    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    rc = _lib().horti_render_forward(
         pts.data_ptr(), rinfo.data_ptr(), depths.data_ptr(), fscal.data_ptr(),
         active.data_ptr(), latent.data_ptr(),
-        B, F, R, M, C, tr, pose_dim, int(scale_on), int(log_occ_on), int(occlusion_on),
+        B, F, R, M, C, tr, tiles_x, pose_dim, int(log_occ_on), int(occlusion_on),
         occ_cutoff, logistic_sigma(occ_cutoff), occlusion_th, min_grad_th,
-        pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        *pk.weight_ptrs(), pk.bl,
-        jd.data_ptr(), jm.data_ptr(), res.data_ptr(),
+        pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
+        res.data_ptr(), recs.data_ptr(), counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(rc, "horti_fused_render")
+    cuda_build.check(rc, "horti_render_forward")
     launches += 1
-    return jd, jm, res
+    return RenderLaunches(B, F, R, M, C, pose_dim + C, tr, tiles_x, res, recs, counts)
+
+
+def band_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """[n_tiles + 1] int32: where each tile's band rows start in the packed
+    order (tile order), and the total at the end."""
+    out = torch.zeros(counts.shape[0] + 1, dtype=torch.int32, device=counts.device)
+    out[1:] = torch.cumsum(counts, 0)
+    return out
+
+
+def render_band(pk, latent, rl: RenderLaunches, offsets: torch.Tensor,
+                pose_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch 2: the [J] depth and mask contributions of the packed band
+    rows, in full 64-row chunks. Their number, offsets[-1], is read on the
+    card (the host never waits for it), so cd and cm [n_tiles x cap, J]
+    hold the worst case; rows past offsets[-1] are left unwritten."""
+    global launches_band
+    dev = rl.res.device
+    rows = rl.counts.shape[0] * rl.tr * rl.M
+    cd = torch.empty(rows, rl.J, dtype=torch.float32, device=dev)
+    cm = torch.empty(rows, rl.J, dtype=torch.float32, device=dev)
+    rc = _lib().horti_render_band(
+        rl.recs.data_ptr(), offsets.data_ptr(), rl.counts.shape[0], rl.tr * rl.M,
+        latent.contiguous().data_ptr(), rl.C, pose_dim, rl.F * rl.R,
+        pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
+        cd.data_ptr(), cm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "horti_render_band")
+    launches_band += 1
+    return cd, cm
+
+
+def render_sum(rl: RenderLaunches, offsets: torch.Tensor, cd: torch.Tensor,
+               cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch 3: jd, jm [B, F, R, J], each ray's contributions summed in
+    sample order, times ray_ok."""
+    global launches_sum
+    dev = rl.res.device
+    jd = torch.empty(rl.B, rl.F, rl.R, rl.J, dtype=torch.float32, device=dev)
+    jm = torch.empty_like(jd)
+    rc = _lib().horti_render_sum(
+        rl.recs.data_ptr(), offsets.data_ptr(), cd.data_ptr(), cm.data_ptr(), rl.res.data_ptr(),
+        rl.B, rl.F, rl.R, rl.tr, rl.tiles_x, rl.tr * rl.M, rl.J, jd.data_ptr(), jm.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "horti_render_sum")
+    launches_sum += 1
+    return jd, jm
+
+
+def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
+                       lane_active, **render_kw):
+    rl = render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
+                        lane_active, **render_kw)
+    offsets = band_offsets(rl.counts)
+    cd, cm = render_band(pk, latent, rl, offsets, render_kw["pose_dim"])
+    jd, jm = render_sum(rl, offsets, cd, cm)
+    return jd, jm, rl.res
 
 
 def fused_render(pk: PackedDecoder, latent, pts, depth_obs, is_fg, ray_valid, depths,

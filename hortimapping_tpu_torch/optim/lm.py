@@ -155,7 +155,8 @@ def _assemble_normal_equations(
 
     # ---------------- II. sdf reconstruction term ----------------
     pts_o = obs.points_w @ T_ow[:, :3, :3].transpose(1, 2) + T_ow[:, None, :3, 3]
-    rec = sdf_residuals(params, spec, latent, pts_o, obs.point_valid, cfg.scale_on, packs.sdf)
+    rec = sdf_residuals(params, spec, latent, pts_o, obs.point_valid, cfg.scale_on, packs.sdf,
+                        lane_active)
     recon_count = obs.point_valid.sum(-1).to(f32)
     w2_r = _robust_w2(rec.res, cfg.recon_robust_th_m, robust_active[:, None])
     H_r, b_r = _term_normal_eq(rec.jac, rec.res, w2_r, recon_count, cfg.w_recon)
