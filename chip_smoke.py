@@ -215,7 +215,7 @@ def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev):
     a mask."""
     import torch
 
-    from hortimapping_tpu_torch.ops import cuda_build, mlp_kernels
+    from hortimapping_tpu_torch.ops import mlp_kernels
 
     gen = torch.Generator(device=dev).manual_seed(0)
     codes = table[torch.randint(0, table.shape[0], (lanes,), generator=gen, device=dev)]
@@ -246,9 +246,8 @@ def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev):
     bound_ms, bound_by = bound(nbytes + weight_bytes(pk32), flops, H100_F32_FLOPS)
     # blocks of 64 rows: each lane rounded up to whole clusters, frozen lanes
     # exit at once; the card holds `wave` blocks at a time
-    wave = mlp_kernels.CLUSTER * cuda_build.load("mlp_fwd_grad").horti_mlp_fwd_grad_clusters(
-        pk32.D, pk32.n_mid, pk32.in_dim, 0)
-    assert wave > 0, (phase, "occupancy query failed", wave)
+    wave = mlp_kernels.CLUSTER * mlp_kernels.wave_and_smem("mlp_fwd_grad", pk32)[0]
+    assert wave > 0, (phase, "no block fits on a SM", wave)
     per_lane = -(-rows_per_lane // (64 * mlp_kernels.CLUSTER)) * mlp_kernels.CLUSTER
     blocks = int(active.sum()) * per_lane
     flat_blocks = -(-lanes * rows_per_lane // (64 * mlp_kernels.CLUSTER)) * mlp_kernels.CLUSTER
@@ -347,6 +346,27 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, split=split)
 
 
+def wave_schedule(name: str, pk, chunks: int, ms: float) -> str:
+    """The schedule of a forward-only launch (B3 `mlp_fwd`, B4
+    `mlp_shared_latent`) of `chunks` 64-row chunks, as the kernel computes
+    it: one wave of clusters of CLUSTER blocks, chunk pair g to cluster g
+    mod the clusters launched; the dynamic shared memory of a block in pk's
+    type; the weight bytes read from L2 at `ms`, modelled (once per chunk
+    pair, multicast to the cluster), not counted."""
+    from hortimapping_tpu_torch.ops import mlp_kernels
+
+    wave, smem = mlp_kernels.wave_and_smem(name, pk)
+    assert wave > 0, (name, "no block fits on a SM", wave)
+    pairs = -(-chunks // mlp_kernels.CLUSTER)
+    clusters = min(wave, pairs)
+    return (f"{chunks} chunks of 64 rows in {pairs} pairs, one wave of {wave} clusters of "
+            f"{mlp_kernels.CLUSTER} ({clusters} launched) taking {pairs // clusters}-"
+            f"{-(-pairs // clusters)} pairs each | dynamic smem a block {smem} B "
+            f"({'bf16' if pk.bf16 else 'f32'}) | "
+            f"weights read from L2 at {pairs * weight_bytes(pk) / ms / 1e9:.2f} TB/s (modelled "
+            f"traffic: once per chunk pair)")
+
+
 def fwd_bound(pk, n_rows: int, in_bytes: float, out_bytes: float):
     """(flops, bound ms, what bounds it) of a forward over n_rows rows."""
     flops = 2.0 * chain_macs(pk)[0] * n_rows
@@ -405,8 +425,8 @@ def check_fwd(phase, pk, codes, pts, valid, clamp):
     print(f"B3 mlp_fwd vs plain, {phase} scoring: {G} point sets x {N} codes x {P} points = "
           f"{rows} rows {mode} | |d sdf| {gate_s} | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
           f"TFLOP/s), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
-          f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call",
-          flush=True)
+          f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call | "
+          f"{wave_schedule('mlp_fwd', pk, -(-rows // 64), ms)}", flush=True)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -490,7 +510,8 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
               f"= {rows} rows | |d sdf| median {med:.3g} p99 {p99:.3g} max {err:.3g} {gate_s}"
               f"{surf_s} | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
-              f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call",
+              f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call | "
+              f"{wave_schedule('mlp_shared_latent', pk, B * -(-pts.shape[0] // 64), ms)}",
               flush=True)
     if surface:
         p95, p999, _ = surf[mesher_mode]
@@ -730,12 +751,11 @@ def main() -> int:
     pk32 = mlp_kernels.pack_params(params, spec, torch.float32)
     pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
     records = {}
-    b1_smem = cuda_build.load("mlp_fwd_grad").horti_mlp_fwd_grad_smem
+    b1_smem = {pk.bf16: mlp_kernels.wave_and_smem("mlp_fwd_grad", pk)[1] for pk in (pk32, pk16)}
     r_smem = render_kernel._lib().horti_render_smem
     tr_gh = render_kernel.tiling(1, gh_cfg.n_sample_on_ray)[0]
     print(f"  dynamic shared memory a block at {pk32.n_mid + 1} x {pk32.D}: B1 f32 "
-          f"{b1_smem(pk32.D, pk32.n_mid, pk32.in_dim, 0)} B, bf16 "
-          f"{b1_smem(pk32.D, pk32.n_mid, pk32.in_dim, 1)} B; B2 forward + render (bf16, "
+          f"{b1_smem[False]} B, bf16 {b1_smem[True]} B; B2 forward + render (bf16, "
           f"{tr_gh} rays) {r_smem(0, pk16.D, pk16.n_mid, pk16.in_dim, C, tr_gh, 1)} B, band "
           f"backward bf16 {r_smem(1, pk16.D, pk16.n_mid, pk16.in_dim, C, tr_gh, 1)} B, f32 "
           f"{r_smem(1, pk32.D, pk32.n_mid, pk32.in_dim, C, tr_gh, 0)} B", flush=True)

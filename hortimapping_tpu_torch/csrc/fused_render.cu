@@ -46,9 +46,6 @@ using namespace horti;
 constexpr int kRec = 8;          // floats a band record: ray, wd, wmk, p[3], pad
 constexpr int kTileRows = 128;   // samples a tile holds at most
 constexpr int kSumThreads = 128;
-// the forward kernel keeps no gradient buffers: room for one more ring slot
-template <typename WT>
-constexpr int kFwdSlots = StreamCfg<WT>::kSlots + 1;
 
 struct RenderArgs {
   const float* pts;     // [B][F][R][M][3] object-frame sample points
@@ -378,18 +375,6 @@ extern "C" long horti_render_smem(int kind, int D, int n_mid, int in_dim, int C,
                      : band_smem<float>(D, n_mid, in_dim));
 }
 
-static bool dims_ok(int D, int C, int in_dim) {
-  return D % 128 == 0 && D <= kMaxWidth && C + 3 == in_dim && in_dim <= 128 && in_dim <= D;
-}
-
-template <typename WT>
-static StreamWeights<WT> stream_weights(const void* fwd, const void* bwd, const void* wl,
-                                        const void* b0, const void* bm, float bl, int D,
-                                        int n_mid, int li, int in_dim) {
-  return StreamWeights<WT>{(const WT*)fwd, (const WT*)bwd, (const WT*)wl, (const float*)b0,
-                           (const float*)bm, bl, D, n_mid, li, in_dim};
-}
-
 // Launch 1: residuals [B][F][R][4], band records and counts. tiles_x (a
 // multiple of kCluster) x tr covers R.
 extern "C" int horti_render_forward(const void* pts, const void* rinfo, const void* depths,
@@ -401,7 +386,7 @@ extern "C" int horti_render_forward(const void* pts, const void* rinfo, const vo
                                     const void* fwd, const void* bwd, const void* wl,
                                     const void* b0, const void* bm, float bl, void* res,
                                     void* recs, void* counts, void* stream) {
-  if (!dims_ok(D, C, C + 3) || tr < 1 || tr * M > kTileRows || M < 2 ||
+  if (!chain_dims_ok(D, n_mid, C + 3) || tr < 1 || tr * M > kTileRows || M < 2 ||
       tiles_x % kCluster != 0 || (long)tiles_x * tr < R || F > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || F == 0 || R == 0) return (int)cudaSuccess;
@@ -443,12 +428,8 @@ extern "C" int horti_render_forward(const void* pts, const void* rinfo, const vo
 template <typename WT>
 static int launch_band(const BandArgs& a, const StreamWeights<WT>& w, cudaStream_t s) {
   const size_t smem = band_smem<WT>(w.D, w.n_mid, w.in_dim);
-  static size_t wave_smem = 0;  // the wave of the last shared-memory size asked
-  static int wave = 0;
-  if (smem != wave_smem) {
-    wave = max_active_clusters(render_band_kernel<WT>, smem);
-    wave_smem = smem;
-  }
+  static WaveCache cache;
+  const int wave = wave_clusters(render_band_kernel<WT>, smem, cache);
   if (wave <= 0) return wave < 0 ? -wave : (int)cudaErrorInvalidConfiguration;
   // no more clusters than the band could fill if every sample were in it
   const long worst = ((long)a.n_tiles * a.cap + kSRows * kCluster - 1) / (kSRows * kCluster);
@@ -464,7 +445,8 @@ extern "C" int horti_render_band(const void* recs, const void* offsets, int n_ti
                                  int D, int n_mid, int li, int bf16, const void* fwd,
                                  const void* bwd, const void* wl, const void* b0, const void* bm,
                                  float bl, void* cd, void* cm, void* stream) {
-  if (!dims_ok(D, C, C + 3) || n_tiles < 1 || cap < 1 || (long)n_tiles * cap >= (1L << 31))
+  if (!chain_dims_ok(D, n_mid, C + 3) || n_tiles < 1 || cap < 1 ||
+      (long)n_tiles * cap >= (1L << 31))
     return (int)cudaErrorInvalidValue;
   BandArgs a{(const float*)recs, (const int*)offsets, (const float*)latent, (float*)cd, (float*)cm,
              n_tiles, cap, C, pose_dim + C, pose_dim, rays_per_fruit};

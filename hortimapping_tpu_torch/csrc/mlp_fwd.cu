@@ -5,69 +5,68 @@
 // row, no gradient. The port's retrieval scoring runs through it.
 //
 // Bound on the H100: operations. At 8x512 a row costs ~3.7 MFLOP against
-// 140 bytes in and 4 out, so the kernel lives by its matmul rate; the
-// weights come from L2. Design: one block of 256 threads per chunk of rows
-// (64 rows in bf16, so each weight fragment fetched from L2 serves 64 rows;
-// 32 in f32), the activations of the chunk never leave shared memory, and
-// with no backward to feed no ReLU sign masks are kept. The chain is the
-// forward of decoder_chain.cuh, the same code B1 and B2 run: bf16 on the
-// tensor cores (mma.sync, f32 accumulation), f32 FMA on the CUDA cores (no
-// TF32). In f32 it is slower than the plain version's cuBLAS matmuls, as
-// B1 is (PERF.md).
-#include "decoder_chain.cuh"
+// 140 bytes in and 4 out, so the kernel lives by its matmul rate. Design: the
+// forward of stream_chain.cuh, the chain B1 and B2 run (64-row chunks, the
+// weights multicast by TMA bulk copies to a cluster of 2 blocks, wgmma in
+// bf16, f32 FMA without TF32), with no ReLU sign words kept; one wave of
+// clusters takes pairs of chunks in turn (`forward_wave`), so a block sets
+// up its ring once for all its chunks.
+#include "stream_chain.cuh"
 
 using namespace horti;
 
-template <typename WT>
-__global__ void __launch_bounds__(kThreads)
-    mlp_fwd_kernel(const float* __restrict__ xin, int n_rows, DecoderWeights<WT> w,
-                   float* __restrict__ sdf) {
-  constexpr int ROWS = kFwdRows<WT>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int in_dim = w.in_dim;
-  ChainBuf buf = chain_carve<WT, ROWS>(smem, w.D, in_dim);
-  const long row0 = (long)blockIdx.x * ROWS;
-
-  for (int e = threadIdx.x; e < ROWS * buf.xcols; e += kThreads) {
-    const int i = e % buf.xcols;
-    const long r = row0 + e / buf.xcols;
-    chain_store_x<WT>(buf, e / buf.xcols, i,
-                      r < n_rows && i < in_dim ? xin[r * in_dim + i] : 0.f);
+// x [n_rows][in_dim] -> sdf [n_rows]
+struct FwdRows {
+  const float* x;
+  float* sdf;
+  int n_rows, in_dim, n_chunks;
+  __device__ __forceinline__ float in(int chunk, int r, int i) const {
+    const long row = (long)chunk * kSRows + r;
+    return row < n_rows ? x[row * in_dim + i] : 0.f;
   }
-  __syncthreads();
-  chain_forward<WT, ROWS>(w, buf);
-  for (int r = threadIdx.x; r < ROWS; r += kThreads)
-    if (row0 + r < n_rows) sdf[row0 + r] = buf.y[r];
-}
+  __device__ __forceinline__ void out(int chunk, int r, float y) const {
+    const long row = (long)chunk * kSRows + r;
+    if (row < n_rows) sdf[row] = y;
+  }
+};
 
 template <typename WT>
-static int launch(const float* x, int n_rows, const DecoderWeights<WT>& w, float* sdf,
-                  cudaStream_t stream) {
-  constexpr int ROWS = kFwdRows<WT>;
-  const size_t smem = chain_buf_bytes<WT, ROWS>(w.D, w.in_dim);
-  cudaError_t err = cudaFuncSetAttribute(mlp_fwd_kernel<WT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((n_rows + ROWS - 1) / ROWS);
-  mlp_fwd_kernel<WT><<<blocks, kThreads, smem, stream>>>(x, n_rows, w, sdf);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    mlp_fwd_kernel(StreamWeights<WT> w, FwdRows rows) {
+  forward_wave<WT>(w, rows);
 }
 
+// Dynamic shared memory of one block, in bytes.
+extern "C" long horti_mlp_fwd_smem(int D, int n_mid, int in_dim, int bf16) {
+  return (long)(bf16 ? forward_wave_smem<__nv_bfloat16>(D, n_mid, in_dim)
+                     : forward_wave_smem<float>(D, n_mid, in_dim));
+}
+
+// Clusters of kCluster blocks the card holds at once (one wave), or minus a
+// cudaError_t.
+extern "C" int horti_mlp_fwd_clusters(int D, int n_mid, int in_dim, int bf16) {
+  return bf16 ? max_active_clusters(mlp_fwd_kernel<__nv_bfloat16>,
+                                    forward_wave_smem<__nv_bfloat16>(D, n_mid, in_dim))
+              : max_active_clusters(mlp_fwd_kernel<float>,
+                                    forward_wave_smem<float>(D, n_mid, in_dim));
+}
+
+// x [n_rows][in_dim]; fwd / bwd: the weight streams of `pack_params` (the
+// forward reads fwd only).
 extern "C" int horti_mlp_fwd(const void* x, int n_rows, int in_dim, int D, int n_mid, int li,
-                             int bf16, const void* w0, const void* w0tk,
-                             const void* wm, const void* wmt, const void* wl, const void* b0,
-                             const void* bm, float bl, void* sdf, void* stream) {
-  if (D % 128 != 0 || D > kMaxWidth || in_dim > D || n_mid < 0) return (int)cudaErrorInvalidValue;
+                             int bf16, const void* fwd, const void* bwd, const void* wl,
+                             const void* b0, const void* bm, float bl, void* sdf, void* stream) {
+  if (!chain_dims_ok(D, n_mid, in_dim)) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaSuccess;
+  const FwdRows rows{(const float*)x, (float*)sdf, n_rows, in_dim, (n_rows + kSRows - 1) / kSRows};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
-    DecoderWeights<T> w{(const T*)w0, (const T*)w0tk, (const T*)wm, (const T*)wmt,
-                        (const T*)wl, (const float*)b0, (const float*)bm, bl, D, n_mid, li, in_dim};
-    return launch<T>((const float*)x, n_rows, w, (float*)sdf, s);
+    return launch_forward_wave(
+        mlp_fwd_kernel<T>, stream_weights<T>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim),
+        rows, s);
   }
-  DecoderWeights<float> w{(const float*)w0, (const float*)w0tk,
-                          (const float*)wm, (const float*)wmt, (const float*)wl, (const float*)b0,
-                          (const float*)bm, bl, D, n_mid, li, in_dim};
-  return launch<float>((const float*)x, n_rows, w, (float*)sdf, s);
+  return launch_forward_wave(
+      mlp_fwd_kernel<float>, stream_weights<float>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim),
+      rows, s);
 }

@@ -94,19 +94,16 @@ extern "C" int horti_mlp_fwd_grad(const void* x, int rows_per_lane, int n_lanes,
                                   int in_dim, int D, int n_mid, int li, int bf16, const void* fwd,
                                   const void* bwd, const void* wl, const void* b0, const void* bm,
                                   float bl, void* sdf, void* grad, void* stream) {
-  if (D % 128 != 0 || D > kMaxWidth || in_dim > D || in_dim > 128 || n_mid < 0 || n_lanes > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!chain_dims_ok(D, n_mid, in_dim) || n_lanes > 65535) return (int)cudaErrorInvalidValue;
   if (rows_per_lane <= 0 || n_lanes <= 0) return (int)cudaSuccess;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
-    StreamWeights<T> w{(const T*)fwd, (const T*)bwd, (const T*)wl, (const float*)b0,
-                       (const float*)bm, bl, D, n_mid, li, in_dim};
-    return launch<T>((const float*)x, rows_per_lane, n_lanes, (const float*)active, w,
+    return launch<T>((const float*)x, rows_per_lane, n_lanes, (const float*)active,
+                     stream_weights<T>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim),
                      (float*)sdf, (float*)grad, s);
   }
-  StreamWeights<float> w{(const float*)fwd, (const float*)bwd, (const float*)wl,
-                         (const float*)b0, (const float*)bm, bl, D, n_mid, li, in_dim};
-  return launch<float>((const float*)x, rows_per_lane, n_lanes, (const float*)active, w,
+  return launch<float>((const float*)x, rows_per_lane, n_lanes, (const float*)active,
+                       stream_weights<float>(fwd, bwd, wl, b0, bm, bl, D, n_mid, li, in_dim),
                        (float*)sdf, (float*)grad, s);
 }

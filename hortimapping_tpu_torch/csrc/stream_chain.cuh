@@ -1,7 +1,9 @@
-// Decoder chain of the fwd+input-grad kernel (B1, mlp_fwd_grad.cu) and the
-// fused render kernels (B2, fused_render.cu), built for Hopper: the same
-// arithmetic as `_fwd_chain` + `input_grad_chain` in
-// hortimapping_tpu/ops/pallas_mlp.py, laid out around the card's weight path.
+// Decoder chain of every kernel of the port, built for Hopper: the frozen
+// DeepSDF decoder (ReLU layers, latent_in skip, tanh head) forward alone
+// (B3, mlp_fwd.cu; B4, mlp_shared_latent.cu), and forward + input gradient
+// (B1, mlp_fwd_grad.cu; B2, fused_render.cu): the same arithmetic as
+// `_fwd_chain` + `input_grad_chain` in hortimapping_tpu/ops/pallas_mlp.py,
+// laid out around the card's weight path.
 //
 // The layout answers the weight stream from L2 (3.7 MB of bf16 weights at
 // 8x512, 7.4 MB in f32, once forward and once backward per chunk of rows).
@@ -39,11 +41,50 @@
 // Every block of a cluster consumes the same stages in the same order: the
 // callers run every chunk of a block, ragged or empty, through the chain.
 // The backward keeps one ReLU sign bit per activation (no second forward).
+// The latent_in skip writes x into the last in_dim columns of layer li's
+// input (layer li-1's padded output columns are zero).
 #pragma once
 
-#include "decoder_chain.cuh"
+#include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace horti {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kColThreads = 64;  // f32: 4 row groups x 64 column threads
+constexpr int kCols = 8;         // f32: columns a thread, f32_col(tx, j)
+constexpr int kMaxWidth = kColThreads * kCols;  // 512, the widest layer
+
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+
+// round to the storage type (identity for f32)
+template <typename WT>
+__device__ __forceinline__ float round_st(float v);
+template <>
+__device__ __forceinline__ float round_st<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_st<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// f32: column of a thread's accumulator j (0..7), two groups of 4 columns
+// (4 tx .. 4 tx + 3 and 256 + 4 tx ..), so its weights of one k are two
+// 16-byte loads
+__device__ __forceinline__ int f32_col(int tx, int j) {
+  return 4 * tx + (kMaxWidth / 2) * (j / 4) + j % 4;
+}
 
 constexpr int kSRows = 64;                              // rows of a chunk
 constexpr int kConsumerThreads = 256;                   // two warpgroups
@@ -66,6 +107,11 @@ struct StreamCfg<float> {
   static constexpr int kK = 8;      // a multiple of 4
   static constexpr int kSlots = 3;  // 16 KB each at D = 512
 };
+
+// ring slots of a forward-only kernel: it keeps no gradient buffers, so
+// there is room for one more
+template <typename WT>
+constexpr int kFwdSlots = StreamCfg<WT>::kSlots + 1;
 
 template <typename WT>
 constexpr bool kIsBf16 = std::is_same<WT, bf16>::value;
@@ -93,6 +139,15 @@ struct StreamWeights {
   float bl;
   int D, n_mid, li, in_dim;  // li = 0: no latent_in skip
 };
+
+// the weights as the C entries receive them (`pack_params` streams)
+template <typename WT>
+inline StreamWeights<WT> stream_weights(const void* fwd, const void* bwd, const void* wl,
+                                        const void* b0, const void* bm, float bl, int D,
+                                        int n_mid, int li, int in_dim) {
+  return StreamWeights<WT>{(const WT*)fwd, (const WT*)bwd, (const WT*)wl, (const float*)b0,
+                           (const float*)bm, bl, D, n_mid, li, in_dim};
+}
 
 // ------------------------------------------------------------ PTX helpers
 
@@ -875,6 +930,90 @@ inline int max_active_clusters(void (*kernel)(KArgs...), size_t smem) {
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
   return e != cudaSuccess ? -(int)e : n;
+}
+
+// max_active_clusters of one kernel, asked again only when its shared
+// memory changes (the caller keeps one cache a kernel: a static of a
+// launcher templated on the kernel's types)
+struct WaveCache {
+  size_t smem = 0;
+  int clusters = 0;
+};
+template <typename... KArgs>
+inline int wave_clusters(void (*kernel)(KArgs...), size_t smem, WaveCache& cache) {
+  if (smem != cache.smem) {
+    cache.clusters = max_active_clusters(kernel, smem);
+    cache.smem = smem;
+  }
+  return cache.clusters;
+}
+
+// ------------------------------------------------------------ forward-only wave
+
+// Dynamic shared memory of a block of a forward-only kernel: the ring of
+// kFwdSlots slots and one chunk's h, x and y.
+template <typename WT>
+__host__ __device__ inline size_t forward_wave_smem(int D, int n_mid, int in_dim) {
+  return ring_region_bytes<WT>(D, in_dim, kFwdSlots<WT>) +
+         chain64_bytes<WT>(D, n_mid, in_dim, false);
+}
+
+// The body of a forward-only kernel (B3, B4), one wave of clusters.
+// `rows` gives the launch's n_chunks 64-row chunks: in(chunk, r, i) is
+// element i < in_dim of row r of the chunk (0 past the rows' end), out(chunk,
+// r, y) stores row r's tanh sdf where the row exists. Pair g of chunks (one a
+// block of the cluster) goes to cluster g mod the clusters of the grid, so
+// both blocks of a cluster run the same number of pairs and consume the same
+// stages; the second chunk of a ragged last pair runs the chain on zeros and
+// stores nothing. A cluster without a pair returns whole, before its ring
+// exists.
+template <typename WT, typename Rows>
+__device__ __forceinline__ void forward_wave(const StreamWeights<WT>& w, const Rows& rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = w.D, in_dim = w.in_dim, k0 = stream_k0<WT>(in_dim);
+  const int pairs = (rows.n_chunks + kCluster - 1) / kCluster;
+  const int cid = blockIdx.x / kCluster, n_cl = gridDim.x / kCluster;
+  if (cid >= pairs) return;
+  Ring ring = ring_init<WT>(smem, w, (pairs - cid + n_cl - 1) / n_cl, false, kFwdSlots<WT>);
+  Chain64 c = chain64_carve<WT>(smem + ring_region_bytes<WT>(D, in_dim, kFwdSlots<WT>), D, w.n_mid,
+                                in_dim, false);
+  if (threadIdx.x >= kConsumerThreads) {
+    producer_role(ring);
+    return;
+  }
+  consumer_start();
+  for (int g = cid; g < pairs; g += n_cl) {
+    const int chunk = g * kCluster + (int)(blockIdx.x % kCluster);
+    for (int e = threadIdx.x; e < kSRows * k0; e += kConsumerThreads) {
+      const int r = e / k0, i = e % k0;
+      chain64_store_x<WT>(c, in_dim, r, i, i < in_dim ? rows.in(chunk, r, i) : 0.f);
+    }
+    publish<WT>();
+    chain64_forward<WT>(w, c, ring);  // ends with a consumer barrier: y is whole
+    for (int r = threadIdx.x; r < kSRows; r += kConsumerThreads) rows.out(chunk, r, c.y[r]);
+  }
+  cluster_sync();  // no block leaves while another may still signal its barriers
+}
+
+// Launch of a forward-only kernel over rows.n_chunks chunks: one wave of
+// clusters, or fewer when the chunk pairs do not fill one. Each kernel has
+// its own Rows type, so its own instance and wave cache. Returns a
+// cudaError_t.
+template <typename WT, typename Rows>
+inline int launch_forward_wave(void (*kernel)(StreamWeights<WT>, Rows), const StreamWeights<WT>& w,
+                               const Rows& rows, cudaStream_t stream) {
+  static WaveCache cache;
+  const size_t smem = forward_wave_smem<WT>(w.D, w.n_mid, w.in_dim);
+  const int wave = wave_clusters(kernel, smem, cache);
+  if (wave <= 0) return wave < 0 ? -wave : (int)cudaErrorInvalidConfiguration;
+  const int pairs = (rows.n_chunks + kCluster - 1) / kCluster;
+  const int clusters = pairs < wave ? pairs : wave;
+  return launch_cluster(kernel, dim3((unsigned)(clusters * kCluster)), smem, stream, w, rows);
+}
+
+// The limits of every kernel of the chain on the decoder's dimensions
+inline bool chain_dims_ok(int D, int n_mid, int in_dim) {
+  return D % 128 == 0 && D <= kMaxWidth && in_dim <= D && in_dim <= 128 && n_mid >= 0;
 }
 
 }  // namespace horti

@@ -5,12 +5,12 @@ weight packing they share.
 Counterpart of `hortimapping_tpu/ops/pallas_mlp.py` (`supported`,
 `pack_params`, `mlp_sdf_and_input_grad`, `mlp_sdf`,
 `mlp_sdf_shared_latent`, `PallasDecoder`). The kernels are
-`csrc/mlp_fwd_grad.cu` (over the Hopper chain of `csrc/stream_chain.cuh`,
-which the render kernels share), `csrc/mlp_fwd.cu` and
-`csrc/mlp_shared_latent.cu` (over `csrc/decoder_chain.cuh`). A CUDA tensor
-goes to the kernel and nowhere else; only a CPU tensor takes the plain
-version (`*_plain`), which writes out the same forward and reverse chain
-(not autograd) with the same roundings.
+`csrc/mlp_fwd_grad.cu`, `csrc/mlp_fwd.cu` and `csrc/mlp_shared_latent.cu`,
+all over the Hopper chain of `csrc/stream_chain.cuh`, which the render
+kernels share; each reads the weight streams `pack_params` lays out. A CUDA
+tensor goes to the kernel and nowhere else; only a CPU tensor takes the
+plain version (`*_plain`), which writes out the same forward and reverse
+chain (not autograd) with the same roundings.
 """
 
 from __future__ import annotations
@@ -23,17 +23,15 @@ import torch
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 from hortimapping_tpu_torch.ops import cuda_build
 
-MAX_WIDTH = 512      # widest hidden layer the kernels take (decoder_chain.cuh kMaxWidth)
+MAX_WIDTH = 512      # widest hidden layer the kernels take (stream_chain.cuh kMaxWidth)
 PLAIN_ROWS = 1 << 16  # rows per pass of the plain chain (bounds its activations)
-MAX_CODES = 65535    # codes one launch of the shared-latent kernel takes (grid.y)
+MAX_CHUNKS = 1 << 30  # 64-row chunks one shared-latent launch takes (int chunk indices)
 
 CLUSTER = 2          # blocks of a cluster sharing each weight fetch (stream_chain.cuh kCluster)
 STAGE_K_BF16 = 32    # k rows of a stage of the weight streams (stream_chain.cuh StreamCfg::kK)
 STAGE_K_F32 = 8
 
-# weight tensors of a PackedDecoder, in the order the C entries take them:
-# the forward-only kernels (B3, B4), and the weight-stream kernels (B1, B2)
-WEIGHT_NAMES = ("w0", "w0tk", "wm", "wmt", "wl", "b0", "bm")
+# weight tensors of a PackedDecoder, in the order the C entries take them
 STREAM_NAMES = ("fwd_stream", "bwd_stream", "wl", "b0", "bm")
 
 # launches of each CUDA kernel since its count was last set to 0: B1
@@ -63,7 +61,6 @@ class PackedDecoder(NamedTuple):
     concat becomes a write into them."""
 
     w0: torch.Tensor    # [in_dim, D]
-    w0tk: torch.Tensor  # [D, in_dim rounded up to 16], zero-padded (tensor-core forward)
     wm: torch.Tensor    # [n_mid, D, D] ([in, out])
     wmt: torch.Tensor   # [n_mid, D, D] ([out, in])
     wl: torch.Tensor    # [D]
@@ -80,10 +77,6 @@ class PackedDecoder(NamedTuple):
     @property
     def bf16(self) -> bool:
         return self.w0.dtype == torch.bfloat16
-
-    def weight_ptrs(self) -> Tuple[int, ...]:
-        """Device pointers of the weight tensors, in the C entries' order."""
-        return tuple(getattr(self, n).data_ptr() for n in WEIGHT_NAMES)
 
     def stream_ptrs(self) -> Tuple[int, ...]:
         """Device pointers of the weight streams, head and biases."""
@@ -164,9 +157,7 @@ def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.fl
     bm = (torch.stack([pad_b(params[f"lin{l}"]["b"]) for l in mids]) if len(mids)
           else torch.zeros(0, D, dtype=f32, device=dev))
     head = params[f"lin{n_lin - 1}"]
-    w0tk = torch.zeros(D, -(-in_dim // 16) * 16, dtype=dtype, device=dev)
-    w0tk[:, :in_dim] = w0.t()
-    # the weight streams of B1 and B2 (stream_layers): forward layer 0 with
+    # the weight streams of the kernels (stream_layers): forward layer 0 with
     # its K padded, layers 1..n_mid as [in, out]; backward layers n_mid..1
     # as [out, in], layer 0 as [D, in] with its N padded
     k0, n0 = stream_dims(in_dim, dtype == torch.bfloat16)
@@ -179,7 +170,6 @@ def pack_params(params: Params, spec: DecoderSpec, dtype: torch.dtype = torch.fl
                            + [_stages(w0_n, dtype)])
     return PackedDecoder(
         w0=w0.contiguous(),
-        w0tk=w0tk,
         wm=wm.contiguous(),
         wmt=wm.transpose(1, 2).contiguous(),
         wl=head["w"][:, 0].to(dtype).contiguous(),
@@ -275,7 +265,7 @@ def shared_latent_plain(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Ten
 
 
 def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
-    for name in WEIGHT_NAMES + STREAM_NAMES:
+    for name in STREAM_NAMES:
         t = getattr(pk, name)
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"packed weight {name} must be contiguous on {x.device}")
@@ -284,18 +274,17 @@ def _check_packed(pk: PackedDecoder, x: torch.Tensor) -> None:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_WEIGHTS = [_P] * len(WEIGHT_NAMES) + [ctypes.c_float]   # w0 .. bm, bl
 _STREAMS = [_P] * len(STREAM_NAMES) + [ctypes.c_float]   # fwd, bwd, wl, b0, bm, bl
 # C entry and argument types of each kernel library
 _ENTRIES = {
     # x, rows_per_lane, n_lanes, active, in_dim, D, n_mid, li, bf16, streams, sdf, grad, stream
     "mlp_fwd_grad": ("horti_mlp_fwd_grad",
                      [_P, _I, _I, _P, _I, _I, _I, _I, _I, *_STREAMS, _P, _P, _P]),
-    # x, n_rows, in_dim, D, n_mid, li, bf16, weights, sdf, stream
-    "mlp_fwd": ("horti_mlp_fwd", [_P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P]),
-    # latents, n_codes, pts, n_pts, in_dim, D, n_mid, li, bf16, weights, out, stream
+    # x, n_rows, in_dim, D, n_mid, li, bf16, streams, sdf, stream
+    "mlp_fwd": ("horti_mlp_fwd", [_P, _I, _I, _I, _I, _I, _I, *_STREAMS, _P, _P]),
+    # latents, n_codes, pts, n_pts, in_dim, D, n_mid, li, bf16, streams, out, stream
     "mlp_shared_latent": ("horti_mlp_shared_latent",
-                          [_P, _I, _P, _I, _I, _I, _I, _I, _I, *_WEIGHTS, _P, _P]),
+                          [_P, _I, _P, _I, _I, _I, _I, _I, _I, *_STREAMS, _P, _P]),
 }
 _bound: set = set()
 
@@ -309,6 +298,21 @@ def _entry(name: str):
         fn.restype, fn.argtypes = ctypes.c_int, argtypes
         _bound.add(name)
     return fn
+
+
+def wave_and_smem(name: str, pk: PackedDecoder) -> Tuple[int, int]:
+    """(clusters the card holds at once, dynamic shared memory of a block in
+    bytes) of kernel library `name` ("mlp_fwd_grad", "mlp_fwd" or
+    "mlp_shared_latent") for pk's decoder and storage type, from the
+    library's occupancy query."""
+    lib = cuda_build.load(name)
+    clusters, smem = getattr(lib, f"horti_{name}_clusters"), getattr(lib, f"horti_{name}_smem")
+    clusters.restype, smem.restype = ctypes.c_int, ctypes.c_long
+    clusters.argtypes = smem.argtypes = [_I] * 4
+    args = (pk.D, pk.n_mid, pk.in_dim, int(pk.bf16))
+    n = clusters(*args)
+    cuda_build.check(max(-n, 0), f"horti_{name}_clusters")
+    return n, smem(*args)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -350,13 +354,14 @@ def _fwd_grad_plain(pk: PackedDecoder, x: torch.Tensor,
 
 
 def _fwd_cuda(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
+    """B3 on rows x [N, in_dim]."""
     global launches_fwd
     _check_packed(pk, x)
     n = x.shape[0]
     sdf = torch.empty(n, dtype=torch.float32, device=x.device)
     rc = _entry("mlp_fwd")(
         x.data_ptr(), n, pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        *pk.weight_ptrs(), pk.bl, sdf.data_ptr(), _stream(x),
+        *pk.stream_ptrs(), pk.bl, sdf.data_ptr(), _stream(x),
     )
     cuda_build.check(rc, "horti_mlp_fwd")
     launches_fwd += 1
@@ -364,17 +369,19 @@ def _fwd_cuda(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
 
 
 def _shared_latent_cuda(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """B4: every point of pts [N, 3] under every code of latents [B, C], in
+    B x ceil(N / 64) chunks that never span two codes."""
     global launches_shared_latent
+    B, N = latents.shape[0], pts.shape[0]
+    if B * -(-N // 64) > MAX_CHUNKS:
+        raise ValueError(f"at most {MAX_CHUNKS} chunks of 64 points a launch, got {B} codes x {N}")
     _check_packed(pk, pts)
     if latents.device != pts.device:
         raise ValueError("latents and pts must lie on one device")
-    B, N = latents.shape[0], pts.shape[0]
-    if B > MAX_CODES:
-        raise ValueError(f"at most {MAX_CODES} codes a launch, got {B}")
     out = torch.empty(B, N, dtype=torch.float32, device=pts.device)
     rc = _entry("mlp_shared_latent")(
         latents.data_ptr(), B, pts.data_ptr(), N, pk.in_dim, pk.D, pk.n_mid, pk.li,
-        int(pk.bf16), *pk.weight_ptrs(), pk.bl, out.data_ptr(), _stream(pts),
+        int(pk.bf16), *pk.stream_ptrs(), pk.bl, out.data_ptr(), _stream(pts),
     )
     cuda_build.check(rc, "horti_mlp_shared_latent")
     launches_shared_latent += 1

@@ -56,6 +56,23 @@ def _rel(got, want):
     return (got - want).abs() / want.abs().max().clamp_min(1e-6)
 
 
+def _held_to_plain(got, want, dtype):
+    """The decoder chain's tolerances (module docstring), as fractions of
+    want's largest magnitude."""
+    err = _rel(got, want)
+    if dtype == "f32":
+        assert float(err.max()) <= 1e-5
+    else:
+        assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+
+
+def _wave(name, pk):
+    """Clusters a wave of forward-only kernel `name` holds."""
+    wave = mlp_kernels.wave_and_smem(name, pk)[0]
+    assert wave > 0
+    return wave
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("name", list(SPECS))
@@ -71,18 +88,15 @@ def test_mlp_kernel_matches_plain(cuda, name, dtype):
     assert mlp_kernels.launches == before + 1
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
-        err = _rel(g, w)
-        if dtype == "f32":
-            assert float(err.max()) <= 1e-5
-        else:
-            assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+        _held_to_plain(g, w, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("name", list(SPECS))
 def test_fwd_kernel_matches_plain(cuda, name, dtype):
-    """B3 (forward alone) on rows that fill no whole chunk."""
+    """B3 (forward alone) on rows that fill no whole chunk; its sdf equals
+    B1's bit for bit, since both run the forward of one chain."""
     params, spec = _decoder(name, 9, cuda)
     rng = np.random.default_rng(2)
     x = torch.as_tensor((rng.normal(size=(1037, spec.in_dim)) * 0.1).astype(np.float32)).to(cuda)
@@ -93,20 +107,9 @@ def test_fwd_kernel_matches_plain(cuda, name, dtype):
     torch.cuda.synchronize()
     assert mlp_kernels.launches_fwd == before + 1
     assert bool(torch.isfinite(got).all())
-    err = _rel(got, want)
-    if dtype == "f32":
-        assert float(err.max()) <= 1e-5
-    else:
-        assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
-    # the forward of B1 is the same arithmetic: in f32 both sum in k order,
-    # so they agree bit for bit; in bf16 B1's wgmma sums in another order
-    # than B3's mma.sync, so they agree to the bf16 tolerance
+    _held_to_plain(got, want, dtype)
     b1 = mlp_kernels.mlp_sdf_and_input_grad(pk, x)[0]
-    if dtype == "f32":
-        np.testing.assert_array_equal(got.cpu().numpy(), b1.cpu().numpy())
-    else:
-        err = _rel(b1, want)
-        assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+    np.testing.assert_array_equal(got.cpu().numpy(), b1.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -126,14 +129,53 @@ def test_shared_latent_kernel_matches_plain(cuda, name, dtype):
     torch.cuda.synchronize()
     assert mlp_kernels.launches_shared_latent == before + 1
     assert got.shape == (3, 999) and bool(torch.isfinite(got).all())
-    err = _rel(got, want)
-    if dtype == "f32":
-        assert float(err.max()) <= 1e-5
-    else:
-        assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+    _held_to_plain(got, want, dtype)
     rows = torch.cat([lat[:, None, :].expand(3, 999, spec.code_length),
                       pts.expand(3, 999, 3)], dim=-1)
     np.testing.assert_array_equal(got.cpu().numpy(), mlp_kernels.mlp_sdf(pk, rows).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fwd_kernel_more_than_a_wave(cuda, dtype):
+    """B3 over more chunk pairs than one wave of clusters takes, an odd
+    number of 64-row chunks (the last pair half empty) and a ragged last
+    chunk: two launches agree bit for bit and hold to the plain version."""
+    params, spec = _decoder("synthetic_pepper_32", 6, cuda)
+    pk = mlp_kernels.pack_params(params, spec, torch.float32 if dtype == "f32" else torch.bfloat16)
+    chunks = 4 * _wave("mlp_fwd", pk) + 3
+    n = (chunks - 1) * 64 + 37
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor((rng.normal(size=(n, spec.in_dim)) * 0.1).astype(np.float32)).to(cuda)
+    got = mlp_kernels.mlp_sdf(pk, x)
+    again = mlp_kernels.mlp_sdf(pk, x)
+    want = mlp_kernels.mlp_sdf_plain(pk, x)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    _held_to_plain(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_shared_latent_kernel_more_than_a_wave(cuda, dtype):
+    """B4 with 15 chunks a code (933 points: a ragged last chunk that no
+    other code shares) and an odd number of codes, more chunk pairs than
+    one wave of clusters takes: two launches agree bit for bit and hold to
+    the plain version."""
+    params, spec = _decoder("synthetic_pepper_32", 7, cuda)
+    pk = mlp_kernels.pack_params(params, spec, torch.float32 if dtype == "f32" else torch.bfloat16)
+    B, N = 2 * -(-2 * _wave("mlp_shared_latent", pk) // 15) + 1, 14 * 64 + 37
+    rng = np.random.default_rng(7)
+    lat = torch.as_tensor((rng.normal(size=(B, spec.code_length)) * 0.1).astype(np.float32)).to(cuda)
+    pts = torch.as_tensor((rng.normal(size=(N, 3)) * 0.05).astype(np.float32)).to(cuda)
+    got = mlp_kernels.mlp_sdf_shared_latent(pk, lat, pts)
+    again = mlp_kernels.mlp_sdf_shared_latent(pk, lat, pts)
+    want = mlp_kernels.mlp_sdf_shared_latent_plain(pk, lat, pts)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    _held_to_plain(got, want, dtype)
 
 
 def _jtj_rel(got, want, ok, pose_dim):
@@ -246,8 +288,7 @@ def test_mlp_kernel_lane_mask(cuda, dtype):
         assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
     else:
         for g, w in ((s_k, s_p), (g_k, g_p)):
-            err = _rel(g[active], w[active])
-            assert float(err.median()) <= 1e-3 and float(err.max()) <= 5e-2
+            _held_to_plain(g[active], w[active], dtype)
 
 
 @pytest.mark.cuda

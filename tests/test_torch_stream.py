@@ -1,11 +1,16 @@
-"""The host side of the Hopper kernels B1 and B2, on the CPU: the weight
-streams the kernels' rings receive, the frozen-lane skip of the SDF term and
-the tiling and packing of the render term's band rows.
+"""The host side of the Hopper kernels, on the CPU: the weight streams the
+kernels' rings receive, the plain versions of the forward-only kernels B3
+and B4 on the same rows, the frozen-lane skip of the SDF term, the tiling
+and packing of the render term's band rows, and the kernel sources the
+build knows.
 
 The kernels themselves need the card (tests/test_torch_card.py); what is
 checked here is everything they are handed. Inputs are made from a seed
 with numpy; weights are packed from the same arrays for both packages.
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +22,7 @@ from hortimapping_tpu.models import decoder as jdec
 from hortimapping_tpu.ops import recon as jrecon
 from hortimapping_tpu_torch.models import decoder as tdec
 from hortimapping_tpu_torch.models.workspace import config_decoder, params_from_jax
-from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+from hortimapping_tpu_torch.ops import cuda_build, mlp_kernels, render_kernel
 from hortimapping_tpu_torch.ops import recon as trecon
 from torch_port_common import ASSETS, random_decoder_np
 
@@ -62,6 +67,38 @@ def test_weight_streams_unpack_exactly(name, dtype):
         W = fwd[1] if pk.n_mid else fwd[0]
         flat = pk.fwd_stream[fwd[0].numel():] if pk.n_mid else pk.fwd_stream
         assert torch.equal(flat[:8], W[:8, 0]) and torch.equal(flat[8:16], W[:8, 1])
+
+
+# ---------------------------------------------------------------- B3 and B4
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_shared_latent_plain_equals_forward_plain_on_materialised_rows(name, dtype):
+    """B4's plain version is B3's on each code's materialised [code | xyz]
+    rows, bit for bit (the card holds the two kernels to the same). One code
+    a call: the CPU's matmuls may sum in another order at another row count."""
+    params, spec = _decoder(name)
+    pk = mlp_kernels.pack_params(params, spec, dtype)
+    rng = np.random.default_rng(8)
+    lat = torch.as_tensor((rng.normal(size=(3, spec.code_length)) * 0.1).astype(np.float32))
+    pts = torch.as_tensor((rng.normal(size=(301, 3)) * 0.05).astype(np.float32))
+    got = mlp_kernels.mlp_sdf_shared_latent_plain(pk, lat, pts)
+    rows = torch.cat([lat[:, None, :].expand(3, 301, spec.code_length),
+                      pts.expand(3, 301, 3)], dim=-1)
+    assert got.shape == (3, 301)
+    for b in range(3):
+        assert torch.equal(got[b], mlp_kernels.mlp_sdf_plain(pk, rows[b]))
+
+
+def test_shared_latent_chunk_limit():
+    """B4's chunk indices are ints: the wrapper refuses more than MAX_CHUNKS
+    64-point chunks before it reaches the card."""
+    params, spec = _decoder("no_skip")
+    pk = mlp_kernels.pack_params(params, spec)
+    lat = torch.zeros(2, spec.code_length)
+    pts = torch.zeros(64 * (mlp_kernels.MAX_CHUNKS // 2) + 1, 3, device="meta")
+    with pytest.raises(ValueError, match="chunks"):
+        mlp_kernels._shared_latent_cuda(pk, lat.to("meta"), pts)
 
 
 # ---------------------------------------------------------------- SDF term, frozen lanes
@@ -151,3 +188,19 @@ def test_band_offsets_pack_in_tile_order():
     for q in range(int(off[-1])):
         t = int(np.searchsorted(off[:-1], q, side="right")) - 1
         assert off[t] <= q < off[t + 1]
+
+
+# ---------------------------------------------------------------- kernel sources
+
+def test_every_kernel_source_is_built_and_every_header_included():
+    """Each csrc/*.cu is a library the build makes, and each csrc/*.cuh is
+    included by one of them: no dead kernel source is left behind."""
+    names = sorted(os.listdir(cuda_build.CSRC))
+    cus = [n[:-3] for n in names if n.endswith(".cu")]
+    assert sorted(cus) == sorted(cuda_build.KERNELS)
+    included = set()
+    for n in cus:
+        with open(os.path.join(cuda_build.CSRC, n + ".cu")) as f:
+            included |= set(re.findall(r'^#include "([^"]+)"', f.read(), re.M))
+    assert {n for n in names if n.endswith(".cuh")} <= included
+    assert included <= set(names)
