@@ -38,10 +38,20 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      (every kernel against its plain version, mean Chamfer-L1 within 0.3 mm);
   8. the greenhouse path's functional gate at B=8: every kernel against its
      plain version, mean Chamfer-L1 within 0.3 mm;
-  9. one JSON line of kernel records, then the JSON result line.
-With --profile FILE, one bench batch and one greenhouse batch are traced by
-torch.profiler (device-time tables appended to FILE), and one more
-greenhouse batch with the SDF term's frozen-lane skip turned off.
+  9. the wild path: a BUP20-like row (32 fruits, 50 frames of 1280x720, the
+     camera 0.8 m from the row) written by the port's generator to a
+     temporary directory; B1 and B2 (B3 and B4 where the path's batch is not
+     32) vs their plain versions on the path's own observations, invalid
+     frame slots included; `run_wild_completion` on
+     configs/wild_pepper_tpu.yaml timed with its split (load frames, phase 1,
+     solve, meshing, writing), at least 24 of 32 fruits valid, all four
+     launch counts; a resumed run that skips every valid fruit and leaves
+     their manifest entries equal; its functional gate (plain versions, mean
+     Chamfer-L1 to the GT ellipsoids within 0.3 mm);
+ 10. one JSON line of kernel records, then the JSON result line.
+With --profile FILE, one bench batch, one greenhouse batch and one wild run
+are traced by torch.profiler (device-time tables appended to FILE), and one
+more greenhouse batch with the SDF term's frozen-lane skip turned off.
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 4). The JAX package is never imported.
@@ -70,6 +80,13 @@ N_GATE = 8                     # fruits of the greenhouse path's functional gate
 GREENHOUSE_YAML = "cka_pepper_tpu.yaml"
 CHALLENGE_YAML = "shape_completion_challenge_pepper_tpu.yaml"
 CD_GATE_MM = 0.3
+WILD_YAML = "wild_pepper_tpu.yaml"
+WILD_SIZE = (1280, 720)        # BUP20's frames (W, H)
+WILD_DISTANCE = 0.8            # camera to fruit row (m): a fruit's box stays under 300 px
+WILD_FRAMES = 50               # camera steps of 7.6 cm along the row (63 steps of 6 cm
+                               # took the phase to 104 s; its budget is ~90 s)
+WILD_SEED = 7                  # make_demo_data's default seed
+WILD_MIN_VALID = 0.75         # share of the row's fruits that must come out valid
 # B3 in bf16 vs its plain version: a summation-order flip moves one
 # activation by one bf16 ulp (2^-8 relative), which reaches the tanh output
 # damped; the median stays near f32 level and 99 % of rows stay within 2 %
@@ -207,21 +224,22 @@ def bound(nbytes: float, flops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev):
+def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None):
     """B1 in f32 vs its plain version in the form the LM launches it: inputs
     [lanes, rows_per_lane, C+3] (one code of the latent table a lane, points
-    at fruit scale) with two frozen lanes; timed, with its bound over the
-    active lanes' rows, and beside the same rows as one flat launch without
-    a mask."""
+    at fruit scale; or the rows `x` a path gives it) with two frozen lanes;
+    timed, with its bound over the active lanes' rows, and beside the same
+    rows as one flat launch without a mask."""
     import torch
 
     from hortimapping_tpu_torch.ops import mlp_kernels
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    codes = table[torch.randint(0, table.shape[0], (lanes,), generator=gen, device=dev)]
-    xyz = torch.randn(lanes, rows_per_lane, 3, generator=gen, device=dev) * 0.06
-    x = torch.cat([codes[:, None].expand(lanes, rows_per_lane, codes.shape[1]), xyz],
-                  dim=-1).contiguous()
+    if x is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        codes = table[torch.randint(0, table.shape[0], (lanes,), generator=gen, device=dev)]
+        xyz = torch.randn(lanes, rows_per_lane, 3, generator=gen, device=dev) * 0.06
+        x = torch.cat([codes[:, None].expand(lanes, rows_per_lane, codes.shape[1]), xyz],
+                      dim=-1).contiguous()
     active = torch.ones(lanes, dtype=torch.bool, device=dev)
     active[[5, 17 % lanes]] = False  # frozen lanes exercise the skip
     s_k, g_k = mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active)
@@ -590,20 +608,21 @@ class LaunchCounts:
 
 
 class Stages:
-    """Host time of the stages of one warm-started batch: the outermost call
-    of each wrapped function, closed by a synchronize. The stages nest (the
-    rescue's re-retrieval and multi-start count under the rescue); what no
-    stage covers is `rest`."""
+    """Host time of the stages of one warm-started batch (or of the
+    functions `targets` names: (stage, owner, attribute)): the outermost call
+    of each wrapped function, closed by a synchronize, summed over its calls.
+    The stages nest (the rescue's re-retrieval and multi-start count under
+    the rescue); what no stage covers is `rest`."""
 
-    def __init__(self):
+    def __init__(self, targets=None):
         from hortimapping_tpu_torch.ops.mesher import MeshExtractor
         from hortimapping_tpu_torch.optim import lm, warmstart
 
-        self.targets = (("retrieval", warmstart, "_retrieve"),
-                        ("main LM", lm, "solve_in_chunks"),
-                        ("objective + rescue", warmstart, "selective_rescue"),
-                        ("grid decode", MeshExtractor, "decode_grids"),
-                        ("host meshing", MeshExtractor, "meshes_from_grids"))
+        self.targets = targets or (("retrieval", warmstart, "_retrieve"),
+                                   ("main LM", lm, "solve_in_chunks"),
+                                   ("objective + rescue", warmstart, "selective_rescue"),
+                                   ("grid decode", MeshExtractor, "decode_grids"),
+                                   ("host meshing", MeshExtractor, "meshes_from_grids"))
         self.t = {}
         self._depth = 0
 
@@ -688,8 +707,203 @@ def mean_cd_mm(meshes, gts, dev) -> float:
 
     g = torch.Generator(device=dev).manual_seed(1)
     return float(np.mean([chamfer_distance(torch.as_tensor(gt).to(dev),
-                                           m.sample_points_uniformly(100_000, g, dev))
+                                           m.sample_points_on_device(100_000, g, dev))
                           for m, gt in zip(meshes, gts)])) * 1e3
+
+
+def wild_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N_FRUITS,
+              size=WILD_SIZE, n_frames=WILD_FRAMES, reps=3,
+              deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32")):
+    """Phase 9, the wild path: a BUP20-like row of `n_fruits` fruits written
+    to a temporary directory by the port's generator, B1 and B2 (and B3 and
+    B4 where the path's batch is not N_FRUITS) against their plain versions
+    on the path's own observations, `run_wild_completion` on
+    configs/wild_pepper_tpu.yaml timed with its split and launch counts, a
+    resumed run, and the functional gate against the GT ellipsoids."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
+    from hortimapping_tpu_torch.data.mesh import PointCloud, TriangleMesh
+    from hortimapping_tpu_torch.data.ply import read_mesh
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim.lm import _subsample, subsample_observations
+    from hortimapping_tpu_torch.optim.state import stack_observations
+    from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+    from hortimapping_tpu_torch.pipeline import wild
+    from hortimapping_tpu_torch.tools import make_demo_data as gen
+    from hortimapping_tpu_torch.utils.misc import set_random_seed
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", WILD_YAML))
+    cfg["deepsdf_dir"] = deepsdf_dir
+    cfg["vis"]["log_on"] = False
+    min_valid = int(np.ceil(WILD_MIN_VALID * n_fruits))
+    opt_cfg = JointOptConfig.from_dict(cfg)
+    assert opt_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
+    C = spec.code_length
+    W, H = size
+    quiet = lambda *a: None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wild_") as scene:
+        cfg["data_dir"] = scene
+        cfg["cam_info_path"] = os.path.join(scene, "cam_info.yaml")
+
+        # 1. the scene: fruits drawn as make_demo_data.main draws them, at
+        # its 0.12 m spacing, a camera driving along the row
+        cat, base_radius = gen.category(cfg["deepsdf_dir"])
+        proj = cat.projection()
+        T_wos, codes = gen.draw_fruits(np.random.default_rng(WILD_SEED), n_fruits, C)
+        x_end = 0.12 * (n_fruits - 1) / 2
+        t0 = time.perf_counter()
+        nbytes = gen.write_scene(scene, T_wos, codes, proj, base_radius,
+                                 gen.row_poses(n_frames, -x_end, x_end, WILD_DISTANCE),
+                                 gen.intrinsics(W, H), W, H, wall_half=x_end + 0.6, device=dev)
+        render_s = time.perf_counter() - t0
+        dirs = np.random.default_rng(1).normal(size=(4096, 3))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        gts = [((dirs * base_radius * np.exp(proj @ code)) @ T[:3, :3].T + T[:3, 3])
+               .astype(np.float32) for T, code in zip(T_wos, codes)]
+
+        # phase 1 of the pipeline once, with its own split: the path's own
+        # observation batch
+        cam = load_config(cfg["cam_info_path"])
+        frames = wild.load_frames(scene, cfg["begin_frame"], cfg["end_frame"], cfg["every_frame"])
+        set_random_seed(42)
+        p1 = Stages(targets=(("read submaps", wild, "read_mesh"),
+                             ("background sampling", TriangleMesh, "sample_points_uniformly"),
+                             ("background voxels", PointCloud, "voxel_down_sample"),
+                             ("ray sampling", wild, "get_render_data"),
+                             ("cleaning", wild, "clean_mesh"),
+                             ("pose init", wild, "get_pose_init"),
+                             ("packing", wild, "render_data_to_observations")))
+        with p1.timing():
+            t0 = time.perf_counter()
+            prepared, rejected = wild.prepare_submaps(
+                cfg, opt_cfg, frames, cam["img_size"],
+                np.linalg.inv(np.asarray(cam["intrinsics"])), table.mean(0).cpu().numpy(), set())
+            p1.t["batch"] = time.perf_counter() - t0
+        B = len(prepared)
+        matched = np.array([p.n_matched for p in prepared])
+        obs = stack_observations([p.obs for p in prepared], dev)
+        slots_off = int((~obs.frame_valid).sum())
+        rays_off = int((~(obs.ray_valid & obs.frame_valid[..., None])).sum())
+        print(f"wild scene: {n_fruits} fruits, {n_frames} frames {W}x{H} (cut from 63 for the "
+              f"phase's time), camera {WILD_DISTANCE} m from the row | rendered and written in {render_s:.1f} s, {nbytes / 1e6:.1f} MB | "
+              f"phase 1 prepared {B}/{n_fruits} (rejected: "
+              f"{dict(collections.Counter(r.reason for r in rejected))}) | matched frames per "
+              f"fruit min {matched.min()} median {np.median(matched):.0f} max {matched.max()} "
+              f"(n_frame {opt_cfg.n_frame}) | invalid frame slots {slots_off} of "
+              f"{obs.frame_valid.numel()}, invalid rays {rays_off} of {obs.ray_valid.numel()}",
+              flush=True)
+        print("wild phase 1 split (ms): " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                                     for k, v in p1.split().items()), flush=True)
+        assert B >= min_valid, (B, [r.reason for r in rejected])
+        assert np.median(matched) >= opt_cfg.n_frame and slots_off > 0, (matched, slots_off)
+
+        # 2. the kernels at this path's shapes, on its own observations, at
+        # the retrieved codes and poses
+        T0 = torch.as_tensor(np.stack([p.T_ow0 for p in prepared]).astype(np.float32)).to(dev)
+        lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
+        lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0, device=dev)
+        for phase, (o, c) in (("wild coarse", subsample_observations(obs, opt_cfg)),
+                              ("wild fine", _subsample(obs, opt_cfg, opt_cfg.fine_frame_stride,
+                                                       opt_cfg.fine_ray_frac,
+                                                       opt_cfg.fine_sample_frac,
+                                                       opt_cfg.fine_pts_frac))):
+            pts_o = o.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
+            x = torch.cat([lat_r[:, None].expand(B, pts_o.shape[1], C), pts_o], dim=-1)
+            check_mlp(phase, pk32, table, B, pts_o.shape[1], dev, x=x.contiguous())
+            check_render(phase, pk16, pk32, o, c, lat_r, T_r, dev)
+        if B != N_FRUITS:
+            P = opt_cfg.retrieval_score_pts
+            pts0 = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+            check_fwd("wild", pk16 if opt_cfg.retrieval_score_bf16 else pk32, table,
+                      pts0[:16, :P], obs.point_valid[:16, :P], spec.clamping_distance)
+            check_shared_latent("wild", params, spec, pk16, pk32, lat_r, dev, surface=False)
+
+        # 3. the timed path
+        stages = Stages(targets=(("load frames", wild, "load_frames"),
+                                 ("phase 1", wild, "prepare_submaps"),
+                                 ("solve", wild, "warmstart_solve"),
+                                 ("meshing", MeshExtractor, "complete_mesh_batch"),
+                                 ("writing", wild, "write_outputs")))
+
+        def run(cfg_):
+            with stages.timing():
+                t0 = time.perf_counter()
+                results = wild.run_wild_completion(cfg_, log=quiet, device=dev)
+                torch.cuda.synchronize()
+                stages.t["batch"] = time.perf_counter() - t0
+            return results
+
+        run(cfg)  # warm-up
+        if profile:
+            profile_main(lambda: run(cfg), smi, profile, "wild path")
+        times, splits = [], []
+        for _ in range(reps):
+            counts = LaunchCounts()
+            results = run(cfg)
+            counts.read()
+            times.append(stages.t["batch"])
+            splits.append(stages.split())
+        counts.require(LaunchCounts.ALL, "wild path")
+        valid = sorted(r.name for r in results if r.valid)
+        solved = [r.iter_count for r in results if r.reason not in ("no valid match", "bbox gate")]
+        ms = float(np.median(times)) * 1e3
+        med = {k: float(np.median([sp[k] for sp in splits])) * 1e3 for k in splits[0]}
+        print(f"wild path: configs/{WILD_YAML} on the row | {ms:.1f} ms a run (median of {reps}: "
+              f"{[round(t * 1e3, 1) for t in times]}), {ms / n_fruits:.2f} ms/fruit | valid "
+              f"{len(valid)}/{n_fruits}, not valid: "
+              f"{dict(collections.Counter(r.reason for r in results if not r.valid))} | mean "
+              f"iters {float(np.mean(solved)):.2f} | launches {counts} | {smi}", flush=True)
+        print("wild path split (median ms): " + ", ".join(f"{k} {v:.1f}" for k, v in med.items()),
+              flush=True)
+        assert len(valid) >= min_valid, (len(valid), [(r.name, r.reason) for r in results])
+        meshes_k = {n: read_mesh(os.path.join(scene, "submaps_complete", n)) for n in valid}
+
+        # 4. resume: every valid fruit skipped, its manifest entry unchanged.
+        # A re-run fruit draws other rays than before (the global RNG stream
+        # no longer passes the skipped fruits, in both packages), so its
+        # entry is the re-run's.
+        manifest = os.path.join(scene, "submaps_complete", "manifest.json")
+        with open(manifest) as f:
+            before = {e["name"]: e for e in json.load(f)}
+        again = wild.run_wild_completion(dict(cfg, resume=True), log=quiet, device=dev)
+        with open(manifest) as f:
+            after = {e["name"]: e for e in json.load(f)}
+        redone = sorted(r.name for r in again)
+        kept = all(after[n] == before[n] for n in valid)
+        updated = all(after[r.name]["valid"] == r.valid and after[r.name]["reason"] == r.reason
+                      for r in again)
+        print(f"wild resume: {len(valid)} valid fruits skipped, {len(redone)} re-run "
+              f"({sum(r.valid for r in again)} now valid) | manifest: valid entries "
+              f"{'unchanged' if kept else 'CHANGED'}, {len(after)} entries, "
+              f"{'equal' if after == before else 'the re-run entries updated'}", flush=True)
+        assert not set(redone) & set(valid) and kept and updated and set(after) == set(before), (
+            redone, valid)
+
+        # 5. functional gate: the same scene with every kernel swapped for
+        # its plain version, CD to the GT ellipsoids over fruits valid in both
+        with plain_versions():
+            t0 = time.perf_counter()
+            results_p = wild.run_wild_completion(cfg, log=quiet, device=dev)
+            t_plain = time.perf_counter() - t0
+        valid_p = sorted(r.name for r in results_p if r.valid)
+        both = sorted(set(valid) & set(valid_p))
+        gt_of = lambda n: gts[int(n.split("_")[0]) - 2]
+        cd_k = mean_cd_mm([meshes_k[n] for n in both], [gt_of(n) for n in both], dev)
+        cd_p = mean_cd_mm([read_mesh(os.path.join(scene, "submaps_complete", n)) for n in both],
+                          [gt_of(n) for n in both], dev)
+        gap = cd_k - cd_p
+        print(f"wild functional gate: {len(both)} fruits valid in both runs (kernels {len(valid)}:"
+              f" {valid}; plain {len(valid_p)}: {valid_p}) | mean CD kernels {cd_k:.4f} mm vs "
+              f"plain {cd_p:.4f} mm, gap {gap:+.4f} mm (gate {CD_GATE_MM} mm) | plain run "
+              f"{t_plain * 1e3:.1f} ms | wild phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        assert len(both) >= min_valid and abs(gap) <= CD_GATE_MM, (both, gap)
 
 
 def main() -> int:
@@ -1025,6 +1239,9 @@ def main() -> int:
     # ---------------- 8. functional gate of the greenhouse path ----------------
     o8 = type(obs)(*(a[:N_GATE] for a in obs))
     functional_gate("greenhouse", o8, T0[:N_GATE], lat_mean[:N_GATE], gh_cfg, N_GATE, gts[:N_GATE])
+
+    # ---------------- 9. wild path ----------------
+    wild_path(params, spec, table, pk16, pk32, smi, dev, profile=args.profile)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

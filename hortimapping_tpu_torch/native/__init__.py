@@ -1,5 +1,5 @@
 """ctypes binding of the host C++ code (`src/horti_native.cpp`, a copy of
-the JAX package's source): marching tetrahedra, marching cubes and
+the JAX package's source): marching tetrahedra, marching cubes, DBSCAN and
 brute-force NN distances.
 
 The library is built with g++ at first use into the port's own build
@@ -59,6 +59,9 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)), ctypes.POINTER(ctypes.c_int64),
             ]
         lib.horti_free.argtypes = [ctypes.c_void_p]
+        lib.horti_dbscan.restype = ctypes.c_int
+        lib.horti_dbscan.argtypes = [fp, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int32)]
         lib.horti_nn_distances.restype = None
         lib.horti_nn_distances.argtypes = [fp, ctypes.c_int64, fp, ctypes.c_int64, fp]
         _lib = lib
@@ -105,6 +108,17 @@ def marching_cubes(grid: np.ndarray, iso: float = 0.0,
     `marching_tetrahedra`: the same welded crossing-edge vertices, about half
     the triangles, outward winding (normals toward +SDF)."""
     return _iso_surface("horti_marching_cubes", grid, iso, spacing)
+
+
+def dbscan(points: np.ndarray, eps: float, min_points: int) -> np.ndarray:
+    """DBSCAN labels of (N, 3) points, -1 for noise (Open3D `cluster_dbscan`
+    semantics: a core point has >= min_points neighbours within eps,
+    itself included)."""
+    points = np.ascontiguousarray(points, np.float32)
+    labels = np.empty(points.shape[0], np.int32)
+    load().horti_dbscan(points.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), points.shape[0],
+                        eps, min_points, labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return labels
 
 
 def nn_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -1,0 +1,291 @@
+"""Generate a synthetic BUP20-style dataset for the wild pipeline
+(counterpart of the wild-scene part of `hortimapping_tpu/tools/make_demo_data.py`).
+
+N fruits of the synthetic ellipsoid world (`tools/synthetic.py`) with known
+codes and poses stand in front of a background wall and are observed by a
+pinhole camera. Output layout (what `pipeline/wild.run_wild_completion`
+reads):
+
+    <out>/cam_info.yaml
+    <out>/<frame>_submap_id.png      instance-id image (uint8)
+    <out>/<frame>_depth.tiff         z-depth [m] (float32 tiff)
+    <out>/<frame>_color.png          RGB (flat instance colours)
+    <out>/<frame>_pose.txt           T_wc row-major
+    <out>/submaps/00001_Background.ply
+    <out>/submaps/<id>_Sweetpepper.ply   (partial observed-side mesh)
+    <out>/gt_poses.npz, gt_codes.npz     ground truth for evaluation
+
+Frames are ray-marched in float64 on a torch device, all fruits at once;
+`write_scene` writes any layout of fruits and camera poses, `main` the JAX
+package's: the same arguments, draws and files.
+
+Run:  python -m hortimapping_tpu_torch.tools.make_demo_data --out data/synthetic_bup
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hortimapping_tpu_torch import native
+from hortimapping_tpu_torch.data import imageio
+from hortimapping_tpu_torch.data.mesh import TriangleMesh
+from hortimapping_tpu_torch.data.ply import write_mesh
+from hortimapping_tpu_torch.device import resolve_device
+from hortimapping_tpu_torch.models.decoder import DecoderSpec
+from hortimapping_tpu_torch.models.workspace import load_specs
+from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory, _ellipsoid_sdf_np
+from hortimapping_tpu_torch.vis import color_table
+
+WALL_Z = 0.55
+PIXEL_CHUNK = 1 << 18   # pixels marched at once: bounds the [fruits, pixels, 3] temporaries
+
+
+def _ellipsoid_sdf(x: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
+    """`_ellipsoid_sdf_np` for [K, N, 3] points under [K, 3] radii."""
+    r = radii[:, None, :]
+    k0 = torch.linalg.norm(x / r, dim=-1)
+    k1 = torch.linalg.norm(x / (r * r), dim=-1)
+    k1 = torch.where(k1 == 0.0, torch.ones_like(k1), k1)
+    return torch.where(k0 == 0.0, -radii.min(dim=1).values[:, None], k0 * (k0 - 1.0) / k1)
+
+
+class _Fruits:
+    """The fruits of a scene on a device: world->object rotation and
+    translation [K, 3, 3] / [K, 3], radii [K, 3], Sim(3) scale [K], f64."""
+
+    def __init__(self, fruits: Sequence[Tuple[np.ndarray, np.ndarray]], device):
+        T = np.array([T_ow for T_ow, _ in fruits], np.float64).reshape(-1, 4, 4)
+        self.R = torch.as_tensor(T[:, :3, :3]).to(device)
+        self.t = torch.as_tensor(T[:, :3, 3]).to(device)
+        self.radii = torch.as_tensor(np.array([r for _, r in fruits], np.float64).reshape(-1, 3)
+                                     ).to(device)
+        self.s = torch.as_tensor(
+            np.array([np.linalg.det(Ti[:3, :3]) ** (1.0 / 3.0) for Ti in T])).to(device)
+
+
+def scene_sdf(x_w: torch.Tensor, fr: _Fruits, wall_z: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distance, instance) of the union scene at [N, 3] world points:
+    instance 0 = none, 1 = wall, k+2 = fruit k. Where fruits tie, the first
+    wins, as the JAX package's sequential `closer = dk < d` loop."""
+    d = wall_z - x_w[:, 2]                     # plane z = wall_z, normal -z
+    inst = torch.ones(x_w.shape[0], dtype=torch.int64, device=x_w.device)
+    if fr.R.shape[0] == 0:
+        return d, inst
+    x_o = x_w[None] @ fr.R.transpose(1, 2) + fr.t[:, None, :]
+    dk = _ellipsoid_sdf(x_o, fr.radii) / fr.s[:, None]
+    d_f, k = dk.min(dim=0)                     # first minimum, as torch documents
+    closer = d_f < d
+    return torch.where(closer, d_f, d), torch.where(closer, k + 2, inst)
+
+
+def march_pixels(T_wc: np.ndarray, K: np.ndarray, pix: torch.Tensor,
+                 fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ray-march the [N, 2] (u, v) pixels `pix` (float64, on the device the
+    march runs on) for 96 steps: (z-depth [N] f64, instance [N] int64), 0
+    where a ray hits nothing. Pixels are independent: any subset of a frame
+    marches to the values of the whole frame's march."""
+    dev = pix.device
+    fr = _Fruits(fruits, dev)
+    f64 = torch.float64
+    invK = torch.as_tensor(np.linalg.inv(K)).to(dev)
+    R_wc = torch.as_tensor(np.asarray(T_wc, np.float64)[:3, :3]).to(dev)
+    origin = torch.as_tensor(np.asarray(T_wc, np.float64)[:3, 3]).to(dev)
+    n = pix.shape[0]
+    pix_h = torch.cat([pix, torch.ones(n, 1, dtype=f64, device=dev)], dim=1)
+    depth = torch.empty(n, dtype=f64, device=dev)
+    inst = torch.empty(n, dtype=torch.int64, device=dev)
+    for lo in range(0, n, PIXEL_CHUNK):
+        dirs_c = pix_h[lo:lo + PIXEL_CHUNK] @ invK.T        # z=1-normalised
+        dirs_w = (dirs_c / torch.linalg.norm(dirs_c, dim=-1, keepdim=True)) @ R_wc.T
+        t = torch.full((dirs_w.shape[0],), 0.05, dtype=f64, device=dev)
+        for _ in range(96):
+            d, _ = scene_sdf(origin + t[:, None] * dirs_w, fr, wall_z)
+            t = t + torch.clamp(d, -0.05, 0.5)
+        x = origin + t[:, None] * dirs_w
+        d, ins = scene_sdf(x, fr, wall_z)
+        hit = (d.abs() < 1e-3) & (t > 0) & (t < 5.0)
+        inst[lo:lo + PIXEL_CHUNK] = torch.where(hit, ins, 0)
+        x_c = (x - origin) @ R_wc                            # world -> cam
+        depth[lo:lo + PIXEL_CHUNK] = torch.where(hit, x_c[:, 2], 0.0)
+    return depth, inst
+
+
+def render_frame(T_wc: np.ndarray, K: np.ndarray, W: int, H: int,
+                 fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
+                 device: str | torch.device = "cuda"):
+    """Ray-march every pixel in float64 on `device`: (depth z [m] (H, W)
+    float32, instance id (H, W) uint8, rgb (H, W, 3) uint8), on the host."""
+    dev = resolve_device(device)
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=dev),
+                          torch.arange(W, dtype=torch.float64, device=dev), indexing="ij")
+    depth, inst = march_pixels(T_wc, K, torch.stack([u, v], dim=-1).reshape(-1, 2), fruits,
+                               wall_z)
+    inst = inst.cpu().numpy()
+    rgb = np.zeros((H * W, 3), np.uint8)
+    rgb[inst == 1] = (90, 90, 90)
+    for k in range(len(fruits)):
+        rgb[inst == k + 2] = tuple(int(c * 255) for c in color_table[(k + 2) % 10])
+    return (depth.cpu().numpy().reshape(H, W).astype(np.float32),
+            inst.reshape(H, W).astype(np.uint8), rgb.reshape(H, W, 3))
+
+
+def partial_fruit_mesh(T_wo: np.ndarray, radii: np.ndarray,
+                       keep_dir_w: np.ndarray, grid_n: int = 48) -> TriangleMesh:
+    """Observed-side mesh: iso-surface of the ellipsoid, keeping triangles
+    whose centroid faces `keep_dir_w` (simulates a partial submap)."""
+    r = float(np.max(radii)) * 1.3
+    g = np.linspace(-r, r, grid_n)
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    pts = np.stack([X, Y, Z], axis=-1)
+    sdf = _ellipsoid_sdf_np(pts, radii).astype(np.float32)
+    verts, faces = native.marching_tetrahedra(sdf, 0.0, spacing=float(g[1] - g[0]))
+    verts = verts - r  # index space -> object frame
+    T_wo33, t_wo = T_wo[:3, :3], T_wo[:3, 3]
+    verts_w = verts @ T_wo33.T + t_wo
+    centroids = verts_w[faces].mean(axis=1)
+    keep = (centroids - t_wo) @ keep_dir_w > -0.1 * np.linalg.norm((centroids - t_wo), axis=1)
+    return TriangleMesh(verts_w.astype(np.float32), faces[keep])
+
+
+def wall_mesh(wall_z: float, half: float = 0.6, center=(0.0, 0.0)) -> TriangleMesh:
+    cx, cy = center
+    v = np.array([
+        [cx - half, cy - half, wall_z], [cx + half, cy - half, wall_z],
+        [cx + half, cy + half, wall_z], [cx - half, cy + half, wall_z],
+    ], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return TriangleMesh(v, f)
+
+
+def draw_fruits(rng: np.random.Generator, n_fruits: int, code_len: int,
+                spacing: float = 0.12) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Codes and object->world poses of a row of fruits along x, in the JAX
+    generator's draw order: per fruit a code, a yaw, a height jitter."""
+    T_wos, codes = [], []
+    for k in range(n_fruits):
+        code = (rng.normal(size=code_len) * 0.4).astype(np.float32)
+        yaw = rng.uniform(-0.4, 0.4)
+        c, s = np.cos(yaw), np.sin(yaw)
+        T_wo = np.eye(4)
+        T_wo[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        T_wo[:3, 3] = [spacing * (k - (n_fruits - 1) / 2), rng.uniform(-0.03, 0.03), 0.45]
+        T_wos.append(T_wo)
+        codes.append(code)
+    return T_wos, codes
+
+
+def look_at(cam_pos: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """Camera->world pose at `cam_pos` looking at `target`, image y along
+    world +y."""
+    zc = target - cam_pos
+    zc = zc / np.linalg.norm(zc)
+    xc = np.cross(np.array([0.0, 1.0, 0.0]), zc)
+    xc /= np.linalg.norm(xc)
+    yc = np.cross(zc, xc)
+    T_wc = np.eye(4)
+    T_wc[:3, 0], T_wc[:3, 1], T_wc[:3, 2], T_wc[:3, 3] = xc, yc, zc, cam_pos
+    return T_wc
+
+
+def sweep_poses(n_frames: int) -> List[np.ndarray]:
+    """The JAX generator's camera sweep in front of the fruits."""
+    poses = []
+    for fi in range(n_frames):
+        ang = 0.5 * np.sin(2 * np.pi * fi / n_frames)
+        cam_pos = np.array([0.25 * np.sin(ang), 0.05 * np.cos(2 * ang), -0.02])
+        poses.append(look_at(cam_pos, np.array([0.0, 0.0, 0.45])))
+    return poses
+
+
+def row_poses(n_frames: int, x_first: float, x_last: float, distance: float,
+              fruit_z: float = 0.45) -> List[np.ndarray]:
+    """A camera driving along a row of fruits (along x at height 0), facing
+    it square from `distance`, as a robot records a crop row."""
+    return [look_at(np.array([x, 0.0, fruit_z - distance]), np.array([x, 0.0, fruit_z]))
+            for x in np.linspace(x_first, x_last, n_frames)]
+
+
+def intrinsics(W: int, H: int) -> np.ndarray:
+    return np.array([[0.9 * W, 0, W / 2], [0, 0.9 * W, H / 2], [0, 0, 1.0]])
+
+
+def write_scene(out: str, T_wos: Sequence[np.ndarray], codes: Sequence[np.ndarray],
+                proj: np.ndarray, base_radius: float, cam_poses: Sequence[np.ndarray],
+                K: np.ndarray, W: int, H: int, wall_z: float = WALL_Z,
+                wall_half: float = 0.6, device: str | torch.device = "cuda") -> int:
+    """Render and write a scene in the layout of the module docstring (the
+    wall centred at the origin); returns the bytes written."""
+    import yaml
+
+    os.makedirs(out, exist_ok=True)
+    submap_dir = os.path.join(out, "submaps")
+    os.makedirs(submap_dir, exist_ok=True)
+    radii = [base_radius * np.exp(proj @ code) for code in codes]
+    fruits = [(np.linalg.inv(T_wo), r) for T_wo, r in zip(T_wos, radii)]
+    with open(os.path.join(out, "cam_info.yaml"), "w") as f:
+        yaml.safe_dump({"intrinsics": K.tolist(), "extrinsics": np.eye(4).tolist(),
+                        "img_size": [H, W]}, f)
+    for fi, T_wc in enumerate(cam_poses):
+        depth, inst, rgb = render_frame(T_wc, K, W, H, fruits, wall_z, device)
+        stem = os.path.join(out, f"{fi:05d}")
+        imageio.imwrite(stem + "_submap_id.png", inst)
+        imageio.imwrite(stem + "_depth.tiff", depth)
+        imageio.imwrite(stem + "_color.png", rgb[..., ::-1])   # BGR, as OpenCV writes
+        with open(stem + "_pose.txt", "w") as f:
+            f.write("\n".join(" ".join(str(x) for x in row) for row in T_wc))
+
+    # submaps: wall + partial fruit meshes (observed from the -z side)
+    write_mesh(os.path.join(submap_dir, "00001_Background.ply"),
+               wall_mesh(wall_z, half=wall_half, center=(0.0, 0.0)))
+    for k, (T_wo, r) in enumerate(zip(T_wos, radii)):
+        mesh = partial_fruit_mesh(T_wo, r, keep_dir_w=np.array([0.0, 0.0, -1.0]))
+        write_mesh(os.path.join(submap_dir, f"{k + 2:05d}_Sweetpepper.ply"), mesh)
+
+    np.savez(os.path.join(out, "gt_poses.npz"), np.stack(T_wos))
+    np.savez(os.path.join(out, "gt_codes.npz"), np.stack(codes))
+    with open(os.path.join(out, "meta.json"), "w") as f:
+        json.dump({"n_fruits": len(T_wos), "n_frames": len(cam_poses),
+                   "wall_z": wall_z, "base_radius": base_radius}, f)
+    return sum(os.path.getsize(os.path.join(dp, fn))
+               for dp, _, fns in os.walk(out) for fn in fns)
+
+
+def category(deepsdf_dir: str) -> Tuple[SyntheticCategory, float]:
+    """The synthetic category of a decoder directory and its base radius."""
+    specs = load_specs(deepsdf_dir)
+    base_radius = float(specs.get("synthetic", {}).get("base_radius", 0.06))
+    cat = SyntheticCategory(spec=DecoderSpec(code_length=int(specs["CodeLength"])),
+                            base_radius=base_radius)
+    return cat, base_radius
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="data/synthetic_bup")
+    ap.add_argument("--deepsdf_dir", default="assets/synthetic_pepper_32")
+    ap.add_argument("--n_fruits", type=int, default=3)
+    ap.add_argument("--n_frames", type=int, default=12)
+    ap.add_argument("--width", type=int, default=256)
+    ap.add_argument("--height", type=int, default=192)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--device", default="cuda", help="device of the ray march (cuda or cpu)")
+    args = ap.parse_args(argv)
+
+    cat, base_radius = category(args.deepsdf_dir)
+    rng = np.random.default_rng(args.seed)
+    T_wos, codes = draw_fruits(rng, args.n_fruits, cat.spec.code_length)
+    W, H = args.width, args.height
+    write_scene(args.out, T_wos, codes, cat.projection(), base_radius,
+                sweep_poses(args.n_frames), intrinsics(W, H), W, H, device=args.device)
+    print(f"wrote synthetic BUP-style dataset to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,86 @@
+"""Seeding, timing and tracing helpers (counterpart of
+`hortimapping_tpu/utils/misc.py`).
+
+`set_random_seed` seeds Python's and numpy's global generators exactly as
+the JAX package does, because the pipelines' ray sampling draws from numpy's
+global state (`data/rays.get_render_data`), and seeds torch's as well.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed `random`, numpy's global generator and torch's; every entry
+    point calls this with 42, as the JAX package does."""
+    random.seed(seed)
+    np.random.seed(seed)
+    os.environ.setdefault("PYTHONHASHSEED", str(seed))
+    torch.manual_seed(seed)
+
+
+def get_time() -> float:
+    """Wall time with the card's queued work drained first."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return time.time()
+
+
+class Timer:
+    """Per-phase accumulator of wall time behind a device sync."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+        self._t0: Optional[float] = None
+        self._phase: Optional[str] = None
+
+    def start(self, phase: str) -> None:
+        self._phase = phase
+        self._t0 = get_time()
+
+    def stop(self) -> float:
+        dt = get_time() - self._t0
+        self.totals[self._phase] = self.totals.get(self._phase, 0.0) + dt
+        self.counts[self._phase] = self.counts.get(self._phase, 0) + 1
+        return dt
+
+    def summary(self) -> str:
+        return ", ".join(f"{k}: {v:.3f}s/{self.counts[k]}x" for k, v in self.totals.items())
+
+
+class trace_if_enabled:
+    """Context manager: trace the block with `torch.profiler` when the
+    environment variable `HORTI_PROFILE_DIR` is set, writing a Chrome trace
+    `<dir>/<label>.json`; does nothing otherwise."""
+
+    def __init__(self, label: str = "horti"):
+        self.dir = os.environ.get("HORTI_PROFILE_DIR")
+        self.label = label
+        self._prof = None
+
+    def __enter__(self):
+        if self.dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            os.makedirs(self.dir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(self.dir, f"{self.label}.json"))
+            self._prof = None
+        return False

@@ -1,12 +1,13 @@
-"""The port stands alone: no file of `hortimapping_tpu_torch/` imports JAX or
-the JAX package, importing it loads neither, and its entry points refuse to
-run on a missing card unless asked for the CPU."""
+"""The port stands alone: no file of `hortimapping_tpu_torch/` imports JAX,
+the JAX package, OpenCV, PIL or click, importing it loads none of them, and
+its entry points refuse to run on a missing card unless asked for the CPU."""
 
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +17,8 @@ PKG = os.path.join(ROOT, "hortimapping_tpu_torch")
 # `hortimapping_tpu` as a whole word: the port's own name starts with it
 JAX_PKG = re.compile(r"\bhortimapping_tpu\b(?!_torch)")
 JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+# the card's machine has none of these
+HOST_ONLY_IMPORT = re.compile(r"^\s*(import|from)\s+(cv2|PIL|click)\b", re.M)
 
 
 def _sources():
@@ -34,6 +37,7 @@ def test_sources_do_not_import_jax_or_the_jax_package():
         with open(path) as f:
             text = f.read()
         assert not JAX_IMPORT.search(text), path
+        assert not HOST_ONLY_IMPORT.search(text), path
         for line in text.splitlines():
             if "import" in line:
                 assert not JAX_PKG.search(line), f"{path}: {line}"
@@ -51,8 +55,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import hortimapping_tpu_torch.optim.warmstart, hortimapping_tpu_torch.optim.lm\n"
         "import hortimapping_tpu_torch.ops.mesher, hortimapping_tpu_torch.ops.render_kernel\n"
         "import hortimapping_tpu_torch.metrics.chamfer, hortimapping_tpu_torch.tools.synthetic\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'hortimapping_tpu' or m.startswith('hortimapping_tpu.')]\n"
+        "import hortimapping_tpu_torch.pipeline.wild, hortimapping_tpu_torch.tools.make_demo_data\n"
+        "import hortimapping_tpu_torch.data.imageio, hortimapping_tpu_torch.utils.misc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -97,4 +103,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         warmstart_solve(params, spec, None, None, None, None, None, 0.08)
     with pytest.raises(RuntimeError, match="CUDA"):
         maybe_retrieval_init(params, spec, None, None, None, None, None)
+    from hortimapping_tpu_torch.pipeline import wild
+    from hortimapping_tpu_torch.tools import make_demo_data
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wild.run_wild_completion({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wild.main(["-c", os.path.join(ROOT, "configs", "wild_pepper_tpu.yaml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_demo_data.render_frame(np.eye(4), np.eye(3), 4, 4, [], 0.55)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -192,7 +192,7 @@ def test_bench_path_matches_jax(small, case):
     T_wo = np.linalg.inv(got.T_ow.numpy())
     gen = torch.Generator().manual_seed(0)
     for mesh, gt, T in zip(meshes, gts, T_wo):
-        pts = mesh.transform(T).sample_points_uniformly(4000, gen)
+        pts = mesh.transform(T).sample_points_on_device(4000, gen)
         assert chamfer_distance(torch.as_tensor(gt), pts) < 0.01
 
 
