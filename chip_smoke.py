@@ -48,10 +48,33 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      launch counts; a resumed run that skips every valid fruit and leaves
      their manifest entries equal; its functional gate (plain versions, mean
      Chamfer-L1 to the GT ellipsoids within 0.3 mm);
- 10. one JSON line of kernel records, then the JSON result line.
-With --profile FILE, one bench batch, one greenhouse batch and one wild run
-are traced by torch.profiler (device-time tables appended to FILE), and one
-more greenhouse batch with the SDF term's frozen-lane skip turned off.
+ 10. the challenge path: an ECCV-challenge split (32 fruits, 5 frames of
+     640x480 each: masks, poses, colour, depth .npy, GT clouds) written by
+     the port's generator to a temporary directory; B1 (the SDF term, and
+     the DeepSDF baseline's lanes form: the table mean, pose frozen, two
+     lanes finished), B2, B3 and B4 vs their plain versions on the path's
+     own observations; the metrics' nearest-neighbour engines (brute force
+     on the card vs the host KD-tree, 1e8 to 3e10 pairs);
+     `run_challenge` on configs/shape_completion_challenge_pepper_tpu.yaml
+     (pose known) timed as the median of 3 after a warm-up with its split
+     (load + depth filter, cleaning, ray sampling, solve, meshing, metrics,
+     writing), CD and P/R/F1 at 5 mm against the GT clouds, all four launch
+     counts; the DeepSDF baseline run with its B1 launches; the functional
+     gate at B=8 (plain versions, mean CD within 0.3 mm);
+ 11. the lab path: 32 peppers in the IGG lab layout (5 frames of 640x480)
+     from the port's generator; B1, B2, B3 and B4 vs their plain versions
+     on the multi-frame path's observations; `run_lab_eval` under
+     configs/lab_pepper_tpu.yaml multi-frame on all 32 and single-frame on
+     the first 4 fruits, each timed with its split, launch counts and CD;
+     the multi-frame functional gate at B=8; 8 berries under
+     configs/lab_berry.yaml multi-frame (10 frames, cut from 50), timed,
+     and B4 vs its plain version on the berry's 80^3 grid under the
+     surface gate of phase 3;
+ 12. one JSON line of kernel records, then the JSON result line.
+With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
+challenge run and one lab multi-frame run are traced by torch.profiler
+(device-time tables appended to FILE), and one more greenhouse batch with
+the SDF term's frozen-lane skip turned off.
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 4). The JAX package is never imported.
@@ -87,6 +110,19 @@ WILD_FRAMES = 50               # camera steps of 7.6 cm along the row (63 steps 
                                # took the phase to 104 s; its budget is ~90 s)
 WILD_SEED = 7                  # make_demo_data's default seed
 WILD_MIN_VALID = 0.75         # share of the row's fruits that must come out valid
+CHALLENGE_SIZE = (640, 480)    # the challenge's RealSense frames (W, H)
+CHALLENGE_FRAMES = 5           # frame_per_fruit of the challenge YAML
+LAB_YAML = "lab_pepper_tpu.yaml"
+BERRY_YAML = "lab_berry.yaml"
+LAB_FRAMES = 5                 # cut from lab_pepper_tpu.yaml's frame_per_fruit 10 for the
+                               # phase's time (its n_frame is 5)
+LAB_SINGLE_FRUITS = 4          # fruits of the single-frame run (one lane a frame)
+BERRY_FRUITS = 8
+BERRY_FRAMES = 10              # cut from lab_berry.yaml's frame_per_fruit 50: its n_frame is 10
+N_PATH_GATE = 8                # fruits of the challenge and lab functional gates
+# pair counts of the nearest-neighbour engine scan (brute force on the card
+# vs scipy's KD-tree on the host): 1e8 to 3e10 pairs, 3e9 among them
+NN_SCAN_POINTS = (10_000, 31_623, 54_772, 100_000, 173_205)
 # B3 in bf16 vs its plain version: a summation-order flip moves one
 # activation by one bf16 ulp (2^-8 relative), which reaches the tanh output
 # damped; the median stays near f32 level and 99 % of rows stay within 2 %
@@ -467,8 +503,9 @@ def surface_distances(pk32, meshes, latents):
     return sdf.abs() / torch.linalg.norm(g[:, C:], dim=1).clamp_min(1e-6)
 
 
-def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=True):
-    """B4 vs its plain version on the mesher's grid (VOXELS^3 points under
+def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=True,
+                        voxels=VOXELS, cube_radius=CUBE_RADIUS):
+    """B4 vs its plain version on the mesher's grid (voxels^3 points under
     each of `latents`): f32 held to max |d sdf| <= 1e-5, bf16 to the median
     and p99 of |d sdf| (B4_BF16_GATE; a sign flip near zero moves a vertex by
     a fraction of a voxel, so never to a per-point maximum). With `surface`,
@@ -483,8 +520,8 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
     from hortimapping_tpu_torch.ops.mesher import MeshExtractor
 
     B = latents.shape[0]
-    voxel = 2.0 * CUBE_RADIUS / (VOXELS - 1)
-    default = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS, device=dev)
+    voxel = 2.0 * cube_radius / (voxels - 1)
+    default = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=cube_radius, device=dev)
     mesher_mode = "bf16" if default.packed is not None and default.packed.bf16 else "f32"
     out, surf = {}, {}
 
@@ -495,7 +532,7 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
         return (*(float(torch.quantile(dist, q)) for q in (0.95, 0.999)), dist.numel())
 
     for mode, pk in (("f32", pk32), ("bf16", pk16)):
-        mesher = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS,
+        mesher = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=cube_radius,
                                bf16=pk.bf16, device=dev)
         pts = mesher.voxel_points
         got = mlp_kernels.mlp_sdf_shared_latent(pk, latents, pts)
@@ -524,7 +561,7 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
         flops, bound_ms, bound_by = fwd_bound(pk, rows, pts.numel() * 4 + latents.numel() * 4,
                                               rows * 4)
         out[mode] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        print(f"B4 mlp_shared_latent vs plain, {phase} grid, {mode}: {B} codes x {VOXELS}^3 points "
+        print(f"B4 mlp_shared_latent vs plain, {phase} grid, {mode}: {B} codes x {voxels}^3 points "
               f"= {rows} rows | |d sdf| median {med:.3g} p99 {p99:.3g} max {err:.3g} {gate_s}"
               f"{surf_s} | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
@@ -906,6 +943,410 @@ def wild_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=
         assert len(both) >= min_valid and abs(gap) <= CD_GATE_MM, (both, gap)
 
 
+def subset_dir(src_split: str, dst_root: str, split: str, names) -> str:
+    """A challenge data dir whose split holds links to the fruits `names`
+    of `src_split` (the functional gate's subset); returns its root."""
+    os.makedirs(os.path.join(dst_root, split), exist_ok=True)
+    for n in names:
+        os.symlink(os.path.join(src_split, n), os.path.join(dst_root, split, n))
+    return dst_root
+
+
+@contextlib.contextmanager
+def capture_solve(module, seen: dict):
+    """Within the block, `module.warmstart_solve` records the observations,
+    start latents and pose inits it is called with into `seen`."""
+    solve = module.warmstart_solve
+
+    def capture(params, spec, cfg, table, obs, lat0, T0, *a, **k):
+        seen.update(obs=obs, lat0=lat0, T0=T0)
+        return solve(params, spec, cfg, table, obs, lat0, T0, *a, **k)
+
+    module.warmstart_solve = capture
+    try:
+        yield
+    finally:
+        module.warmstart_solve = solve
+
+
+def nn_engine_scan(dev) -> None:
+    """The nearest-neighbour engines of the metrics at 1e8 to 3e10 pairs:
+    the tiled brute force on the card vs scipy's KD-tree on the host (all
+    cores), both held to each other; where the first wins sets
+    `metrics.chamfer.BRUTE_FORCE_MAX_PAIRS["cuda"]`."""
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.metrics import chamfer
+
+    rng = np.random.default_rng(3)
+    rows = []
+    for n in NN_SCAN_POINTS:
+        a = (rng.normal(size=(n, 3)) * 0.04 + 0.5).astype(np.float32)
+        b = (rng.normal(size=(n, 3)) * 0.04 + 0.5).astype(np.float32)
+        ta, tb = torch.as_tensor(a).to(dev), torch.as_tensor(b).to(dev)
+        got = chamfer.nn_distances(ta, tb).cpu().numpy()
+        t_dev = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chamfer.nn_distances(ta, tb).cpu()
+            t_dev.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = chamfer.nn_distances_kdtree(a, b)
+        t_tree = time.perf_counter() - t0
+        err = float(np.abs(got - want).max())
+        assert err <= 1e-6, (n, err)
+        rows.append(f"{n * n:.1e} pairs: card {np.median(t_dev) * 1e3:.1f} ms, KD-tree "
+                    f"{t_tree * 1e3:.1f} ms (max |d| {err:.2g})")
+    print(f"metrics NN engines (brute force on the card, median of 3, vs host KD-tree; the card "
+          f"up to {chamfer.BRUTE_FORCE_MAX_PAIRS['cuda']:.0e} pairs): " + " | ".join(rows),
+          flush=True)
+
+
+def challenge_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N_FRUITS,
+                   size=CHALLENGE_SIZE, n_frames=CHALLENGE_FRAMES, reps=3, n_gate=N_PATH_GATE,
+                   deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32")):
+    """Phase 10, the ECCV challenge path: a split of `n_fruits` fruits written
+    by the port's generator to a temporary directory; B1 (the SDF term and
+    the DeepSDF baseline's lanes form), B2, B3 and B4 against their plain
+    versions on the path's own observations; `run_challenge` under
+    configs/shape_completion_challenge_pepper_tpu.yaml timed with its split,
+    its CD and F-score at 5 mm against the generator's GT clouds and the
+    four launch counts; the DeepSDF baseline run; the path's functional
+    gate at `n_gate` fruits."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
+    from hortimapping_tpu_torch.data.challenge import ShapeCompletionDataset
+    from hortimapping_tpu_torch.data.mesh import TriangleMesh
+    from hortimapping_tpu_torch.metrics.chamfer import ChamferDistance
+    from hortimapping_tpu_torch.metrics.precision_recall import PrecisionRecall
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+    from hortimapping_tpu_torch.pipeline import challenge
+    from hortimapping_tpu_torch.tools import make_demo_data as gen
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", CHALLENGE_YAML))
+    cfg.update(deepsdf_dir=deepsdf_dir, split="val", run_name="chip_smoke")
+    opt_cfg = JointOptConfig.from_dict(cfg)
+    assert opt_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
+    C = spec.code_length
+    W, H = size
+    quiet = lambda *a: None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_challenge_") as root:
+        cfg["data_dir"] = root
+        t0 = time.perf_counter()
+        nbytes = gen.make_challenge_dataset(root, deepsdf_dir, "val", n_fruits, n_frames, W=W,
+                                            H=H, device=dev)
+        render_s = time.perf_counter() - t0
+
+        # the timed path
+        stages = Stages(targets=(
+            ("load + depth filter", ShapeCompletionDataset, "__getitem__"),
+            ("cleaning", challenge, "clean_pcd"),
+            ("ray sampling", challenge, "get_render_data"),
+            ("solve", challenge, "warmstart_solve"),
+            ("baseline solve", challenge, "shape_opt_deepsdf_batched"),
+            ("meshing", MeshExtractor, "complete_mesh_batch"),
+            ("metrics: mesh sampling", TriangleMesh, "sample_points_uniformly"),
+            ("metrics: Chamfer", ChamferDistance, "update"),
+            ("metrics: P/R", PrecisionRecall, "update"),
+            ("writing", challenge, "write_mesh")))
+
+        def run(cfg_):
+            with stages.timing():
+                t0 = time.perf_counter()
+                summary = challenge.run_challenge(cfg_, log=quiet, device=dev)
+                torch.cuda.synchronize()
+                stages.t["batch"] = time.perf_counter() - t0
+            return summary
+
+        # the warm-up run hands over the path's own observations
+        seen = {}
+        with capture_solve(challenge, seen):
+            run(cfg)
+        obs = seen["obs"]
+        B = obs.points_w.shape[0]
+        assert B == n_fruits, B
+        print(f"challenge split: {n_fruits} fruits x {n_frames} frames {W}x{H} (challenge "
+              f"layout: masks, poses, colour, depth .npy, GT clouds) rendered and written in "
+              f"{render_s:.1f} s, {nbytes / 1e6:.1f} MB | fused clouds "
+              f"{int(obs.point_valid.sum())} of {obs.point_valid.numel()} point slots, "
+              f"{int((obs.ray_valid & obs.frame_valid[..., None]).sum())} of "
+              f"{obs.ray_valid.numel()} rays", flush=True)
+
+        # the kernels at this path's shapes, on its own observations
+        T0 = torch.eye(4, device=dev)[None].repeat(B, 1, 1)
+        lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
+        lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0, device=dev)
+        P = opt_cfg.retrieval_score_pts
+        scales = torch.linspace(opt_cfg.retrieval_scale_min, opt_cfg.retrieval_scale_max,
+                                opt_cfg.retrieval_n_scales, device=dev)
+        S = scales.shape[0]
+        G = min(16, B)   # one scoring launch: score_chunk fruits x the scales
+        check_fwd("challenge", pk16 if opt_cfg.retrieval_score_bf16 else pk32,
+                  table[:(1 << 15) // P],
+                  (scales[None, :, None, None] * obs.points_w[:G, None, :P]).reshape(G * S, P, 3),
+                  obs.point_valid[:G, None, :P].expand(G, S, P).reshape(G * S, P),
+                  spec.clamping_distance)
+        check_shared_latent("challenge", params, spec, pk16, pk32, lat_r, dev, surface=False)
+        pts_o = obs.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
+        N_pts = pts_o.shape[1]
+        check_mlp("challenge", pk32, table, B, N_pts, dev,
+                  x=torch.cat([lat_r[:, None].expand(B, N_pts, C), pts_o], dim=-1).contiguous())
+        # the DeepSDF baseline's lanes form: the table mean, the pose frozen
+        # at identity (points as observed), two lanes finished
+        b1_base = check_mlp("challenge DeepSDF baseline", pk32, table, B, N_pts, dev,
+                            x=torch.cat([lat0[:, None].expand(B, N_pts, C), obs.points_w],
+                                        dim=-1).contiguous())
+        b2 = check_render("challenge", pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
+        nn_engine_scan(dev)
+
+        times, splits = [], []
+        for _ in range(reps):
+            counts = LaunchCounts()
+            summary = run(cfg)
+            counts.read()
+            times.append(stages.t["batch"])
+            splits.append(stages.split())
+        counts.require(LaunchCounts.ALL, "challenge path")
+        ms = float(np.median(times)) * 1e3
+        med = {k: float(np.median([sp[k] for sp in splits])) * 1e3 for k in splits[0]}
+        print(f"challenge path: configs/{CHALLENGE_YAML} (init_mode {opt_cfg.init_mode}, "
+              f"trust_region {opt_cfg.trust_region}, pose known) on the split | {ms:.1f} ms a run "
+              f"(median of {reps}: {[round(t * 1e3, 1) for t in times]}), {ms / B:.2f} ms/fruit | "
+              f"solve {summary['timing_s'] * 1e3:.2f} ms/fruit (the summary's timing) | failed "
+              f"{summary['failed']} | mean iters {summary['iteration']:.2f} | CD "
+              f"{summary['CD[mm]']:.4f} mm, F-score {summary['F-score[%]']:.2f} %, precision "
+              f"{summary['Precision[%]']:.2f} %, recall {summary['Recall[%]']:.2f} % at "
+              f"{summary['threshold[mm]'] * 1e3:.1f} mm vs the GT clouds | launches {counts} | "
+              f"{smi}", flush=True)
+        print("challenge path split (median ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in med.items() if k != "baseline solve"), flush=True)
+        if profile:
+            profile_main(lambda: challenge.run_challenge(cfg, log=quiet, device=dev), smi, profile,
+                         "challenge path")
+        assert summary["fruits"] == B and summary["failed"] == 0, summary
+        assert np.isfinite(summary["CD[mm]"]) and len(summary["cd_per_fruit_mm"]) == B
+        written = sorted(os.listdir(os.path.join(root, "results", "chip_smoke", "val")))
+        assert written == sorted(f"{f}.ply" for f in os.listdir(os.path.join(root, "val"))), written
+
+        # the DeepSDF baseline: code-only LM, B1 in its lanes form
+        cfg_b = dict(cfg, baseline_name="DeepSDF", run_name="chip_smoke_deepsdf")
+        counts = LaunchCounts()
+        summary_b = run(cfg_b)
+        counts.read()
+        counts.require(("mlp_fwd_grad", "mlp_shared_latent"), "challenge DeepSDF baseline")
+        print(f"challenge DeepSDF baseline: {stages.t['batch'] * 1e3:.1f} ms a run (solve "
+              f"{stages.t.get('baseline solve', 0.0) * 1e3:.1f} ms, {summary_b['timing_s'] * 1e3:.2f}"
+              f" ms/fruit) | mean iters {summary_b['iteration']:.2f} | CD "
+              f"{summary_b['CD[mm]']:.4f} mm, F-score {summary_b['F-score[%]']:.2f} % | B1 "
+              f"launches {counts.n['mlp_fwd_grad']} (all: {counts}) | {smi}", flush=True)
+        assert np.isfinite(summary_b["CD[mm]"]) and counts.n["fused_render"] == 0
+
+        # functional gate: the first n_gate fruits, kernels vs plain versions
+        names = sorted(os.listdir(os.path.join(root, "val")))[:n_gate]
+        gate_root = subset_dir(os.path.join(root, "val"), os.path.join(root, "gate"), "val",
+                               names)
+        cfg_g = dict(cfg, data_dir=gate_root)
+        t0 = time.perf_counter()
+        s_k = challenge.run_challenge(dict(cfg_g, run_name="kernels"), log=quiet, device=dev)
+        t_k = time.perf_counter() - t0
+        with plain_versions():
+            t0 = time.perf_counter()
+            s_p = challenge.run_challenge(dict(cfg_g, run_name="plain"), log=quiet, device=dev)
+            t_p = time.perf_counter() - t0
+        gap = s_k["CD[mm]"] - s_p["CD[mm]"]
+        print(f"challenge functional gate: B={n_gate}, mean CD kernels {s_k['CD[mm]']:.4f} mm vs "
+              f"plain {s_p['CD[mm]']:.4f} mm, gap {gap:+.4f} mm (gate {CD_GATE_MM} mm) | run "
+              f"kernels {t_k * 1e3:.1f} ms, plain {t_p * 1e3:.1f} ms | mean iters kernels "
+              f"{s_k['iteration']:.2f}, plain {s_p['iteration']:.2f} | challenge phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        assert abs(gap) <= CD_GATE_MM, gap
+    return dict(b1_baseline=b1_base, b2=b2)
+
+
+def lab_split(names, path: str) -> str:
+    """A lab split file listing the fruits `names` under "test"; returns its path."""
+    with open(path, "w") as f:
+        json.dump({"train": [], "test": list(names)}, f)
+    return path
+
+
+def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N_FRUITS,
+             size=CHALLENGE_SIZE, n_frames=LAB_FRAMES, n_single=LAB_SINGLE_FRUITS,
+             n_berry=BERRY_FRUITS, berry_frames=BERRY_FRAMES, n_gate=N_PATH_GATE,
+             deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32"),
+             berry_dir=os.path.join(ROOT, "assets", "synthetic_berry_32")):
+    """Phase 11, the IGG lab path: `n_fruits` peppers in the lab layout
+    written by the port's generator; B1, B2, B3 and B4 against their plain
+    versions on the multi-frame path's own observations; `run_lab_eval`
+    under configs/lab_pepper_tpu.yaml multi-frame on all fruits and
+    single-frame on the first `n_single`, each timed with its launch counts
+    and CD; the multi-frame functional gate at `n_gate` fruits; then
+    `n_berry` berries under configs/lab_berry.yaml multi-frame, with B4
+    against its plain version on the berry's 80^3 grid under the surface
+    gate of phase 3."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
+    from hortimapping_tpu_torch.data.mesh import TriangleMesh
+    from hortimapping_tpu_torch.metrics.chamfer import ChamferDistance
+    from hortimapping_tpu_torch.metrics.precision_recall import PrecisionRecall
+    from hortimapping_tpu_torch.models.workspace import config_decoder
+    from hortimapping_tpu_torch.ops import mlp_kernels
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+    from hortimapping_tpu_torch.pipeline import lab
+    from hortimapping_tpu_torch.tools import make_demo_data as gen
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", LAB_YAML))
+    cfg.update(deepsdf_dir=deepsdf_dir, run_name="chip_smoke_lab")
+    cfg["vis"]["log_on"] = False
+    opt_cfg = JointOptConfig.from_dict(cfg)
+    assert opt_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
+    C = spec.code_length
+    W, H = size
+    quiet = lambda *a: None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lab_") as root:
+        pepper, berry = os.path.join(root, "pepper"), os.path.join(root, "berry")
+        t0 = time.perf_counter()
+        nbytes = gen.make_lab_dataset(pepper, deepsdf_dir, n_fruits, n_frames, W, H, device=dev)
+        render_s = time.perf_counter() - t0
+        names = [f"fruit_{k:02d}" for k in range(n_fruits)]
+        cfg.update(data_dir=pepper, split=os.path.join(pepper, "split.json"))
+
+        stages = Stages(targets=(
+            ("load + preprocess", lab, "prepare_lab_instances"),
+            ("solve", lab, "warmstart_solve"),
+            ("meshing", MeshExtractor, "complete_mesh_batch"),
+            ("metrics: mesh sampling", TriangleMesh, "sample_points_uniformly"),
+            ("metrics: Chamfer", ChamferDistance, "update"),
+            ("metrics: P/R", PrecisionRecall, "update")))
+
+        def run(cfg_, multi, label, need=LaunchCounts.ALL, warm=False):
+            if warm:
+                lab.run_lab_eval(cfg_, multi, log=quiet, device=dev)
+            counts = LaunchCounts()
+            with stages.timing():
+                t0 = time.perf_counter()
+                summary = lab.run_lab_eval(cfg_, multi, log=quiet, device=dev)
+                torch.cuda.synchronize()
+                stages.t["batch"] = time.perf_counter() - t0
+            counts.read()
+            counts.require(need, label)
+            n = summary["frames"]
+            ms = stages.t["batch"] * 1e3
+            print(f"{label}: {n} instances | {ms:.1f} ms a run, {ms / n:.2f} ms an instance | "
+                  f"solve {summary['timing_s'] * 1e3:.2f} ms an instance (the summary's timing) | "
+                  f"mean iters {summary['iteration']:.2f} | CD {summary['CD[mm]']:.4f} mm, "
+                  f"F-score {summary['F-score[%]']:.2f} % at 5 mm vs the laser GT | launches "
+                  f"{counts} | {smi}", flush=True)
+            print(f"{label} split (ms): " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                                      for k, v in stages.split().items()),
+                  flush=True)
+            assert np.isfinite(summary["CD[mm]"]) and len(summary["cd_per_fruit_mm"]) == n
+            return summary
+
+        # no warm-up: phase 10 ran every kernel and library call of this path;
+        # the run hands over its own observations
+        seen = {}
+        with capture_solve(lab, seen):
+            s_multi = run(cfg, True, f"lab path, multi-frame (configs/{LAB_YAML})")
+        assert s_multi["frames"] == n_fruits
+        if profile:
+            profile_main(lambda: lab.run_lab_eval(cfg, True, log=quiet, device=dev), smi, profile,
+                         "lab path, multi-frame")
+        obs, T0 = seen["obs"], seen["T0"]
+        B = obs.points_w.shape[0]
+        print(f"lab set: {n_fruits} peppers x {n_frames} frames {W}x{H} (cut from frame_per_fruit "
+              f"{cfg['frame_per_fruit']}; lab layout: depth in mm, 255-valued masks, integrated "
+              f"map, laser GT) rendered and written in {render_s:.1f} s, {nbytes / 1e6:.1f} MB | "
+              f"multi-frame: {int(obs.frame_valid.sum())} of {obs.frame_valid.numel()} frame "
+              f"slots, {int(obs.point_valid.sum())} of {obs.point_valid.numel()} point slots",
+              flush=True)
+        lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
+        lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0, device=dev)
+        P = opt_cfg.retrieval_score_pts
+        G = min(16, B)   # one scoring launch: score_chunk fruits at unit scale
+        pts0 = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+        assert opt_cfg.retrieval_n_scales == 1
+        check_fwd("lab", pk16 if opt_cfg.retrieval_score_bf16 else pk32, table[:(1 << 15) // P],
+                  pts0[:G, :P], obs.point_valid[:G, :P], spec.clamping_distance)
+        check_shared_latent("lab", params, spec, pk16, pk32, lat_r, dev, surface=False)
+        pts_o = obs.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
+        N_pts = pts_o.shape[1]
+        check_mlp("lab", pk32, table, B, N_pts, dev,
+                  x=torch.cat([lat_r[:, None].expand(B, N_pts, C), pts_o], dim=-1).contiguous())
+        check_render("lab multi-frame", pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
+        cfg_s = dict(cfg, split=lab_split(names[:n_single], os.path.join(root, "single.json")))
+        s_single = run(cfg_s, False, f"lab path, single-frame, {n_single} fruits")
+        assert s_single["frames"] >= n_single
+
+        # functional gate: multi-frame on the first n_gate fruits
+        cfg_g = dict(cfg, split=lab_split(names[:n_gate], os.path.join(root, "gate.json")))
+        t0 = time.perf_counter()
+        s_k = lab.run_lab_eval(cfg_g, True, log=quiet, device=dev)
+        t_k = time.perf_counter() - t0
+        with plain_versions():
+            t0 = time.perf_counter()
+            s_p = lab.run_lab_eval(cfg_g, True, log=quiet, device=dev)
+            t_p = time.perf_counter() - t0
+        gap = s_k["CD[mm]"] - s_p["CD[mm]"]
+        print(f"lab functional gate (multi-frame): B={n_gate}, mean CD kernels "
+              f"{s_k['CD[mm]']:.4f} mm vs plain {s_p['CD[mm]']:.4f} mm, gap {gap:+.4f} mm (gate "
+              f"{CD_GATE_MM} mm) | run kernels {t_k * 1e3:.1f} ms, plain {t_p * 1e3:.1f} ms | mean "
+              f"iters kernels {s_k['iteration']:.2f}, plain {s_p['iteration']:.2f}", flush=True)
+        assert abs(gap) <= CD_GATE_MM, gap
+
+        # berries: configs/lab_berry.yaml (0.04 m at 1 mm: an 80^3 grid)
+        cfg_b = load_config(os.path.join(ROOT, "configs", BERRY_YAML))
+        cfg_b.update(deepsdf_dir=berry_dir, run_name="chip_smoke_berry")
+        cfg_b["vis"]["log_on"] = False
+        t0 = time.perf_counter()
+        nbytes = gen.make_lab_dataset(berry, berry_dir, n_berry, berry_frames, W, H, device=dev)
+        render_s = time.perf_counter() - t0
+        cfg_b.update(data_dir=berry, split=os.path.join(berry, "split.json"))
+        vis = cfg_b["vis"]
+        voxels = int(2 * vis["object_radius_max_m"] * 1e3 / vis["mc_res_mm"])
+        print(f"berry set: {n_berry} berries x {berry_frames} frames {W}x{H} (cut from "
+              f"frame_per_fruit {cfg_b['frame_per_fruit']}; n_frame "
+              f"{cfg_b['opt']['render']['n_frame']}) rendered and written in {render_s:.1f} s, "
+              f"{nbytes / 1e6:.1f} MB | grid {voxels}^3 at {vis['mc_res_mm']} mm", flush=True)
+        solved = {}
+        solve = lab.warmstart_solve
+
+        def keep(*a, **k):
+            res = solve(*a, **k)
+            solved["latent"] = res.latent
+            return res
+
+        lab.warmstart_solve = keep
+        try:
+            # mean init (no opt.tpu block): no scoring launch
+            s_berry = run(cfg_b, True, f"lab berry, multi-frame (configs/{BERRY_YAML})",
+                          need=("mlp_fwd_grad", "fused_render", "mlp_shared_latent"), warm=True)
+        finally:
+            lab.warmstart_solve = solve
+        params_b, spec_b = config_decoder(berry_dir, device=dev)
+        b4 = check_shared_latent("berry", params_b, spec_b,
+                                 mlp_kernels.pack_params(params_b, spec_b, torch.bfloat16),
+                                 mlp_kernels.pack_params(params_b, spec_b, torch.float32),
+                                 solved["latent"], dev, voxels=voxels,
+                                 cube_radius=vis["object_radius_max_m"])
+        print(f"lab phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(b4_berry=b4, berry_cd=s_berry["CD[mm]"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="stop after the kernel phases")
@@ -1242,6 +1683,12 @@ def main() -> int:
 
     # ---------------- 9. wild path ----------------
     wild_path(params, spec, table, pk16, pk32, smi, dev, profile=args.profile)
+
+    # ---------------- 10. challenge path ----------------
+    challenge_path(params, spec, table, pk16, pk32, smi, dev, profile=args.profile)
+
+    # ---------------- 11. lab path ----------------
+    lab_path(params, spec, table, pk16, pk32, smi, dev, profile=args.profile)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

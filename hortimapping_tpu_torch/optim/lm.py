@@ -2,7 +2,8 @@
 
 Counterpart of `hortimapping_tpu/optim/lm.py`: the fixed-lambda solver, the
 adaptive trust-region solver (`trust_region`), the two-resolution schedule,
-the code-frozen pose polish, the staged solve and the chunked solve. The JAX
+the code-frozen pose polish, the staged solve, the chunked solve and the
+code-only DeepSDF baseline (`shape_opt_deepsdf(_batched)`). The JAX
 `vmap` over fruits is the leading [B] axis of every tensor; its
 `lax.while_loop` with frozen lanes is a Python loop that steps every lane
 until all are done or failed (one host sync per iteration, for that test).
@@ -688,6 +689,73 @@ def solve_in_chunks(
             obs_c, lat_c, T_c, _ = pad_to_multiple(obs_c, lat_c, T_c, max_batch)
         outs.append(OptResult(*(a[: hi - lo] for a in solver(obs_c, lat_c, T_c))))
     return OptResult(*(torch.cat(xs) for xs in zip(*outs)))
+
+
+def shape_opt_deepsdf_batched(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    points_o: torch.Tensor,     # [B, P, 3] surface points already in the object frame
+    point_valid: torch.Tensor,  # [B, P] bool
+    latent0: torch.Tensor,      # [B, C]
+    device: str | torch.device = "cuda",
+    packs: Optional[Packs] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSDF baseline: a code-only LM over the SDF term with the pose
+    frozen, every fruit a lane. Per iteration i: the SDF residuals and their
+    code Jacobian (through the fwd+input-grad kernel where the decoder is
+    kernel-supported, finished lanes skipped), Huber weights from
+    `robust_iter` on, the code prior, the configured damping, one C x C
+    solve. A lane finishes when its gradient or code step falls under its
+    epsilon (from i = 2 on) or at `max_iter`; its `iters` stops at i + 1 in
+    that step and its latent is kept bit for bit from then on. Returns
+    (latents [B, C], iteration counts [B] int32)."""
+    dev = resolve_device(device)
+    points_o, point_valid, latent = (t.to(dev) for t in (points_o, point_valid, latent0))
+    if packs is None:
+        packs = make_packs(params, spec, cfg)
+    B, C = latent.shape
+    f32 = torch.float32
+    count = point_valid.sum(-1).to(f32)
+    eye = torch.eye(C, dtype=f32, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    i = 0
+    while not bool(done.all()):
+        rec = sdf_residuals(params, spec, latent, points_o, point_valid, False, packs.sdf, ~done)
+        w2 = _robust_w2(rec.res, cfg.recon_robust_th_m,
+                        torch.tensor(i >= cfg.robust_iter, device=dev))
+        H, b = _term_normal_eq(rec.jac[..., 6:], rec.res, w2, count, cfg.w_recon)
+        H = H + cfg.w_codereg * eye
+        b = b - cfg.w_codereg * latent
+        H = apply_lm_damping(H, cfg)
+        delta_c = torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
+        lat_new = latent + delta_c
+        conv = (((b.abs().max(-1).values < cfg.epsilon_g)
+                 | ((delta_c / (lat_new + 1e-12)).abs().max(-1).values < cfg.epsilon_c))
+                & (i > 1))
+        latent = torch.where(done[:, None], latent, lat_new)
+        iters = torch.where(done, iters, torch.full_like(iters, i + 1))
+        done = done | conv | (i >= cfg.max_iter - 1)
+        i += 1
+    return latent, iters
+
+
+def shape_opt_deepsdf(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    points_o: torch.Tensor,     # [P, 3]
+    point_valid: torch.Tensor,  # [P] bool
+    latent0: torch.Tensor,      # [C]
+    device: str | torch.device = "cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DeepSDF baseline for one fruit: `shape_opt_deepsdf_batched` at
+    B = 1. Returns (latent [C], iteration count)."""
+    dev = resolve_device(device)
+    lat, iters = shape_opt_deepsdf_batched(params, spec, cfg, points_o[None], point_valid[None],
+                                           latent0[None], dev)
+    return lat[0], iters[0]
 
 
 def pack_result(res: OptResult) -> torch.Tensor:

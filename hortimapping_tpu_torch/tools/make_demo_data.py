@@ -1,5 +1,8 @@
-"""Generate a synthetic BUP20-style dataset for the wild pipeline
-(counterpart of the wild-scene part of `hortimapping_tpu/tools/make_demo_data.py`).
+"""Generate synthetic datasets for the pipelines (counterpart of the wild,
+challenge and lab parts of `hortimapping_tpu/tools/make_demo_data.py`):
+the BUP20-style scene below; `make_challenge_dataset` (ECCV challenge
+layout, `pipeline/challenge.py`) and `make_lab_dataset` (IGG lab layout,
+`pipeline/lab.py`), whose layouts their docstrings give, as functions only.
 
 N fruits of the synthetic ellipsoid world (`tools/synthetic.py`) with known
 codes and poses stand in front of a background wall and are observed by a
@@ -15,7 +18,8 @@ reads):
     <out>/submaps/<id>_Sweetpepper.ply   (partial observed-side mesh)
     <out>/gt_poses.npz, gt_codes.npz     ground truth for evaluation
 
-Frames are ray-marched in float64 on a torch device, all fruits at once;
+Frames are ray-marched in float64 on a torch device, all fruits at once
+(and, for the challenge and lab layouts, all frames of a fruit at once);
 `write_scene` writes any layout of fruits and camera poses, `main` the JAX
 package's: the same arguments, draws and files.
 
@@ -34,8 +38,8 @@ import torch
 
 from hortimapping_tpu_torch import native
 from hortimapping_tpu_torch.data import imageio
-from hortimapping_tpu_torch.data.mesh import TriangleMesh
-from hortimapping_tpu_torch.data.ply import write_mesh
+from hortimapping_tpu_torch.data.mesh import PointCloud, TriangleMesh
+from hortimapping_tpu_torch.data.ply import write_mesh, write_point_cloud
 from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.decoder import DecoderSpec
 from hortimapping_tpu_torch.models.workspace import load_specs
@@ -43,7 +47,7 @@ from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory, _ellipsoid
 from hortimapping_tpu_torch.vis import color_table
 
 WALL_Z = 0.55
-PIXEL_CHUNK = 1 << 18   # pixels marched at once: bounds the [fruits, pixels, 3] temporaries
+MARCH_ELEMS = 1 << 23   # fruit x ray pairs marched at once: bounds the [fruits, rays, 3] temporaries
 
 
 def _ellipsoid_sdf(x: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
@@ -84,56 +88,87 @@ def scene_sdf(x_w: torch.Tensor, fr: _Fruits, wall_z: float) -> Tuple[torch.Tens
     return torch.where(closer, d_f, d), torch.where(closer, k + 2, inst)
 
 
-def march_pixels(T_wc: np.ndarray, K: np.ndarray, pix: torch.Tensor,
-                 fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def march_cameras(T_wcs: Sequence[np.ndarray], K: np.ndarray, pix: torch.Tensor,
+                  fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Ray-march the [N, 2] (u, v) pixels `pix` (float64, on the device the
-    march runs on) for 96 steps: (z-depth [N] f64, instance [N] int64), 0
-    where a ray hits nothing. Pixels are independent: any subset of a frame
-    marches to the values of the whole frame's march."""
+    march runs on) seen from each camera T_wc for 96 steps, the rays of all
+    cameras side by side in one march: per camera (z-depth [N] f64,
+    instance [N] int64), 0 where a ray hits nothing. Rays are independent:
+    any subset of a frame, alone or beside other cameras' rays, marches to
+    the values of the whole frame's march."""
     dev = pix.device
     fr = _Fruits(fruits, dev)
     f64 = torch.float64
     invK = torch.as_tensor(np.linalg.inv(K)).to(dev)
-    R_wc = torch.as_tensor(np.asarray(T_wc, np.float64)[:3, :3]).to(dev)
-    origin = torch.as_tensor(np.asarray(T_wc, np.float64)[:3, 3]).to(dev)
+    cams = [(torch.as_tensor(np.asarray(T, np.float64)[:3, :3]).to(dev),
+             torch.as_tensor(np.asarray(T, np.float64)[:3, 3]).to(dev)) for T in T_wcs]
     n = pix.shape[0]
+    chunk = max(1, MARCH_ELEMS // max(len(fruits), 1))
     pix_h = torch.cat([pix, torch.ones(n, 1, dtype=f64, device=dev)], dim=1)
-    depth = torch.empty(n, dtype=f64, device=dev)
-    inst = torch.empty(n, dtype=torch.int64, device=dev)
-    for lo in range(0, n, PIXEL_CHUNK):
-        dirs_c = pix_h[lo:lo + PIXEL_CHUNK] @ invK.T        # z=1-normalised
-        dirs_w = (dirs_c / torch.linalg.norm(dirs_c, dim=-1, keepdim=True)) @ R_wc.T
-        t = torch.full((dirs_w.shape[0],), 0.05, dtype=f64, device=dev)
+    dirs_c = pix_h @ invK.T                                  # z=1-normalised
+    unit = dirs_c / torch.linalg.norm(dirs_c, dim=-1, keepdim=True)
+    dirs_w = torch.cat([unit @ R_wc.T for R_wc, _ in cams])
+    origins = torch.cat([origin.expand(n, 3) for _, origin in cams])
+    t = torch.full((dirs_w.shape[0],), 0.05, dtype=f64, device=dev)
+    for lo in range(0, t.shape[0], chunk):
+        o, dw, tc = origins[lo:lo + chunk], dirs_w[lo:lo + chunk], t[lo:lo + chunk]
         for _ in range(96):
-            d, _ = scene_sdf(origin + t[:, None] * dirs_w, fr, wall_z)
-            t = t + torch.clamp(d, -0.05, 0.5)
-        x = origin + t[:, None] * dirs_w
-        d, ins = scene_sdf(x, fr, wall_z)
-        hit = (d.abs() < 1e-3) & (t > 0) & (t < 5.0)
-        inst[lo:lo + PIXEL_CHUNK] = torch.where(hit, ins, 0)
-        x_c = (x - origin) @ R_wc                            # world -> cam
-        depth[lo:lo + PIXEL_CHUNK] = torch.where(hit, x_c[:, 2], 0.0)
-    return depth, inst
+            d, _ = scene_sdf(o + tc[:, None] * dw, fr, wall_z)
+            tc = tc + torch.clamp(d, -0.05, 0.5)
+        t[lo:lo + chunk] = tc
+    out = []
+    for c, (R_wc, origin) in enumerate(cams):
+        depth = torch.empty(n, dtype=f64, device=dev)
+        inst = torch.empty(n, dtype=torch.int64, device=dev)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            tc = t[c * n + lo:c * n + hi]
+            x = origin + tc[:, None] * dirs_w[c * n + lo:c * n + hi]
+            d, ins = scene_sdf(x, fr, wall_z)
+            hit = (d.abs() < 1e-3) & (tc > 0) & (tc < 5.0)
+            inst[lo:hi] = torch.where(hit, ins, 0)
+            x_c = (x - origin) @ R_wc                        # world -> cam
+            depth[lo:hi] = torch.where(hit, x_c[:, 2], 0.0)
+        out.append((depth, inst))
+    return out
+
+
+def march_pixels(T_wc: np.ndarray, K: np.ndarray, pix: torch.Tensor,
+                 fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`march_cameras` of one camera: (z-depth [N] f64, instance [N] int64)."""
+    return march_cameras([T_wc], K, pix, fruits, wall_z)[0]
+
+
+def render_frames(T_wcs: Sequence[np.ndarray], K: np.ndarray, W: int, H: int,
+                  fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
+                  device: str | torch.device = "cuda"):
+    """Ray-march every pixel of each camera in float64 on `device`, all
+    cameras in one march: per camera (depth z [m] (H, W) float32, instance
+    id (H, W) uint8, rgb (H, W, 3) uint8), on the host."""
+    dev = resolve_device(device)
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=dev),
+                          torch.arange(W, dtype=torch.float64, device=dev), indexing="ij")
+    out = []
+    for depth, inst in march_cameras(T_wcs, K, torch.stack([u, v], dim=-1).reshape(-1, 2),
+                                     fruits, wall_z):
+        inst = inst.cpu().numpy()
+        rgb = np.zeros((H * W, 3), np.uint8)
+        rgb[inst == 1] = (90, 90, 90)
+        for k in range(len(fruits)):
+            rgb[inst == k + 2] = tuple(int(c * 255) for c in color_table[(k + 2) % 10])
+        out.append((depth.cpu().numpy().reshape(H, W).astype(np.float32),
+                    inst.reshape(H, W).astype(np.uint8), rgb.reshape(H, W, 3)))
+    return out
 
 
 def render_frame(T_wc: np.ndarray, K: np.ndarray, W: int, H: int,
                  fruits: Sequence[Tuple[np.ndarray, np.ndarray]], wall_z: float,
                  device: str | torch.device = "cuda"):
-    """Ray-march every pixel in float64 on `device`: (depth z [m] (H, W)
-    float32, instance id (H, W) uint8, rgb (H, W, 3) uint8), on the host."""
-    dev = resolve_device(device)
-    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=dev),
-                          torch.arange(W, dtype=torch.float64, device=dev), indexing="ij")
-    depth, inst = march_pixels(T_wc, K, torch.stack([u, v], dim=-1).reshape(-1, 2), fruits,
-                               wall_z)
-    inst = inst.cpu().numpy()
-    rgb = np.zeros((H * W, 3), np.uint8)
-    rgb[inst == 1] = (90, 90, 90)
-    for k in range(len(fruits)):
-        rgb[inst == k + 2] = tuple(int(c * 255) for c in color_table[(k + 2) % 10])
-    return (depth.cpu().numpy().reshape(H, W).astype(np.float32),
-            inst.reshape(H, W).astype(np.uint8), rgb.reshape(H, W, 3))
+    """`render_frames` of one camera: (depth z [m] (H, W) float32, instance
+    id (H, W) uint8, rgb (H, W, 3) uint8), on the host."""
+    return render_frames([T_wc], K, W, H, fruits, wall_z, device)[0]
 
 
 def partial_fruit_mesh(T_wo: np.ndarray, radii: np.ndarray,
@@ -253,8 +288,156 @@ def write_scene(out: str, T_wos: Sequence[np.ndarray], codes: Sequence[np.ndarra
     with open(os.path.join(out, "meta.json"), "w") as f:
         json.dump({"n_fruits": len(T_wos), "n_frames": len(cam_poses),
                    "wall_z": wall_z, "base_radius": base_radius}, f)
-    return sum(os.path.getsize(os.path.join(dp, fn))
-               for dp, _, fns in os.walk(out) for fn in fns)
+    return _tree_bytes(out)
+
+
+def _unit_dirs(rng: np.random.Generator, n: int) -> np.ndarray:
+    dirs = rng.normal(size=(n, 3))
+    return dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+
+
+def make_challenge_fruit(out_dir: str, cat: SyntheticCategory, proj: np.ndarray,
+                         code: np.ndarray, n_frames: int = 5, W: int = 160, H: int = 120,
+                         with_gt: bool = True, seed: int = 0,
+                         device: str | torch.device = "cuda") -> int:
+    """Write one fruit in the ECCV challenge directory layout:
+    gt/pcd/fruit.ply, input/intrinsic.json (column-major K),
+    input/{masks,poses,color}/<frame>.png|txt and input/depth/<frame>.npy.
+    The fruit sits at the origin (the challenge solves with the pose known)
+    and the masks are {0,1}-valued, as the real challenge's. Returns the
+    bytes written."""
+    device = resolve_device(device)
+    radii = cat.base_radius * np.exp(proj @ code)
+    fruits = [(np.eye(4), radii)]
+    K = intrinsics(W, H)
+    for sub in ["input/masks", "input/poses", "input/color", "input/depth"]:
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    with open(os.path.join(out_dir, "input", "intrinsic.json"), "w") as f:
+        json.dump({"intrinsic_matrix": K.flatten(order="F").tolist()}, f)
+
+    rng = np.random.default_rng(seed)
+    poses = []
+    for fi in range(n_frames):
+        ang = 2 * np.pi * fi / n_frames
+        cam_pos = np.array([0.3 * np.sin(ang), 0.1 * np.cos(2 * ang),
+                            -0.3 * abs(np.cos(ang)) - 0.05])
+        poses.append(look_at(cam_pos, np.zeros(3)))
+    for fi, (T_wc, (depth, inst, rgb)) in enumerate(
+            zip(poses, render_frames(poses, K, W, H, fruits, 0.5, device))):
+        name = f"{fi:05d}"
+        imageio.imwrite(os.path.join(out_dir, "input", "masks", name + ".png"),
+                        (inst == 2).astype(np.uint8))
+        np.savetxt(os.path.join(out_dir, "input", "poses", name + ".txt"), T_wc)
+        imageio.imwrite(os.path.join(out_dir, "input", "color", name + ".png"), rgb[..., ::-1])
+        np.save(os.path.join(out_dir, "input", "depth", name + ".npy"), depth.astype(np.float32))
+
+    if with_gt:
+        os.makedirs(os.path.join(out_dir, "gt", "pcd"), exist_ok=True)
+        write_point_cloud(os.path.join(out_dir, "gt", "pcd", "fruit.ply"),
+                          PointCloud((_unit_dirs(rng, 4000) * radii).astype(np.float32)))
+    return _tree_bytes(out_dir)
+
+
+def make_challenge_dataset(out: str, deepsdf_dir: str, split: str = "val", n_fruits: int = 2,
+                           n_frames: int = 5, seed: int = 11, W: int = 160, H: int = 120,
+                           device: str | torch.device = "cuda") -> int:
+    """Challenge-layout dataset of synthetic fruits, the JAX generator's
+    codes (one draw a fruit from `default_rng(seed)`) and GT draws (fruit k
+    from `default_rng(seed + k)`). Returns the bytes written."""
+    device = resolve_device(device)
+    cat, _ = category(deepsdf_dir)
+    proj = cat.projection()
+    rng = np.random.default_rng(seed)
+    for k in range(n_fruits):
+        code = (rng.normal(size=cat.spec.code_length) * 0.4).astype(np.float32)
+        make_challenge_fruit(os.path.join(out, split, f"fruit_{k:02d}"), cat, proj, code,
+                             n_frames=n_frames, W=W, H=H, seed=seed + k, device=device)
+    return _tree_bytes(os.path.join(out, split))
+
+
+def make_lab_dataset(out: str, deepsdf_dir: str, n_fruits: int = 2, n_frames: int = 6,
+                     W: int = 160, H: int = 120, seed: int = 5,
+                     device: str | torch.device = "cuda") -> int:
+    """IGG-lab layout dataset of synthetic fruits. Per fruit directory:
+        realsense/{color,depth,masks}/<frame>.{png,npy,png}  (1-based frames,
+                                   depth in mm, 255-valued masks)
+        realsense/intrinsic.json   (column-major K, depth_scale, height, width)
+        realsense/scene/integrated.ply  (the fused fruit surface, map frame)
+        tf/tf_allposes.npz         (per-frame camera pose in the GT frame)
+        tf/bounding_box.npz        (crop box, world frame)
+        laser/fruit.ply            (GT cloud, fruit frame)
+    plus a split.json listing every fruit under "test". The fruit sits at
+    the origin of its GT frame, whose camera poses are the frames' T_wc;
+    draws from `default_rng(seed)`: per fruit its code, then its GT
+    directions, as the JAX generator. Returns the bytes written."""
+    device = resolve_device(device)
+    cat, _ = category(deepsdf_dir)
+    proj = cat.projection()
+    rng = np.random.default_rng(seed)
+    depth_scale = 1000.0
+    K = intrinsics(W, H)
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    fruit_ids = []
+    for k in range(n_fruits):
+        fid = f"fruit_{k:02d}"
+        fruit_ids.append(fid)
+        base = os.path.join(out, fid)
+        rgbd = os.path.join(base, "realsense")
+        for sub in ["color", "depth", "masks", "scene"]:
+            os.makedirs(os.path.join(rgbd, sub), exist_ok=True)
+        os.makedirs(os.path.join(base, "tf"), exist_ok=True)
+        os.makedirs(os.path.join(base, "laser"), exist_ok=True)
+
+        code = (rng.normal(size=cat.spec.code_length) * 0.4).astype(np.float32)
+        radii = cat.base_radius * np.exp(proj @ code)
+        fruits = [(np.eye(4), radii)]
+        with open(os.path.join(rgbd, "intrinsic.json"), "w") as f:
+            json.dump({"intrinsic_matrix": K.flatten(order="F").tolist(),
+                       "height": H, "width": W, "depth_scale": depth_scale}, f)
+
+        tfs, all_pts = [], []
+        for fi in range(n_frames):
+            ang = 2 * np.pi * fi / n_frames
+            cam_pos = np.array([0.3 * np.sin(ang), 0.08 * np.cos(ang),
+                                -0.3 * abs(np.cos(ang)) - 0.08])
+            tfs.append(look_at(cam_pos, np.zeros(3)))
+        for fi, (T_gc, (depth, inst, rgb)) in enumerate(
+                zip(tfs, render_frames(tfs, K, W, H, fruits, 0.6, device))):
+            name = f"{fi + 1:05d}"
+            imageio.imwrite(os.path.join(rgbd, "masks", name + ".png"),
+                            ((inst == 2) * 255).astype(np.uint8))
+            imageio.imwrite(os.path.join(rgbd, "color", name + ".png"), rgb[..., ::-1])
+            np.save(os.path.join(rgbd, "depth", name + ".npy"),
+                    (depth * depth_scale).astype(np.float32))
+            hit = inst.reshape(-1) == 2
+            if hit.any():
+                z = depth.reshape(-1)[hit]
+                uu, vv = u.reshape(-1)[hit], v.reshape(-1)[hit]
+                x = (uu - K[0, 2]) * z / K[0, 0]
+                y = (vv - K[1, 2]) * z / K[1, 1]
+                p_c = np.stack([x, y, z], -1)
+                all_pts.append(p_c @ T_gc[:3, :3].T + T_gc[:3, 3])
+
+        np.savez(os.path.join(base, "tf", "tf_allposes.npz"), np.stack(tfs))
+        # the map is stored in the frame of the first camera
+        map_g = np.concatenate(all_pts)
+        T_mw = np.linalg.inv(tfs[0])
+        map_m = map_g @ T_mw[:3, :3].T + T_mw[:3, 3]
+        write_point_cloud(os.path.join(rgbd, "scene", "integrated.ply"),
+                          PointCloud(map_m.astype(np.float32)))
+        r = float(np.max(radii)) * 1.4
+        np.savez(os.path.join(base, "tf", "bounding_box.npz"),
+                 np.array([[-r, -r, -r], [r, r, r]]))
+        write_point_cloud(os.path.join(base, "laser", "fruit.ply"),
+                          PointCloud((_unit_dirs(rng, 3000) * radii).astype(np.float32)))
+
+    with open(os.path.join(out, "split.json"), "w") as f:
+        json.dump({"train": [], "test": fruit_ids}, f)
+    return _tree_bytes(out)
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(root) for fn in fns)
 
 
 def category(deepsdf_dir: str) -> Tuple[SyntheticCategory, float]:

@@ -1,5 +1,5 @@
 """Seeding, timing and tracing helpers (counterpart of
-`hortimapping_tpu/utils/misc.py`).
+`hortimapping_tpu/utils/misc.py`), and the optional W&B run summary.
 
 `set_random_seed` seeds Python's and numpy's global generators exactly as
 the JAX package does, because the pipelines' ray sampling draws from numpy's
@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import random
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -84,3 +84,21 @@ class trace_if_enabled:
             self._prof.export_chrome_trace(os.path.join(self.dir, f"{self.label}.json"))
             self._prof = None
         return False
+
+
+def wandb_log_summary(project: str, run_name: str, summary: Dict, enabled: bool) -> None:
+    """One summary dict per run to Weights & Biases; a no-op when disabled
+    or when the `wandb` package is missing (it is imported only here)."""
+    if not enabled:
+        return
+    try:
+        import wandb
+    except ImportError:
+        return
+    run = wandb.init(project=project, name=run_name)
+    run.summary.update(summary)
+    run.finish()
+
+
+def mean_or_nan(xs: List[float]) -> float:
+    return float(np.mean(xs)) if xs else float("nan")

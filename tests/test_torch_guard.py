@@ -1,6 +1,8 @@
 """The port stands alone: no file of `hortimapping_tpu_torch/` imports JAX,
-the JAX package, OpenCV, PIL or click, importing it loads none of them, and
-its entry points refuse to run on a missing card unless asked for the CPU."""
+the JAX package, OpenCV, PIL or click, nor wandb at module level (it is
+optional: the W&B summary imports it where it logs), importing it loads
+none of them, and its entry points refuse to run on a missing card unless
+asked for the CPU."""
 
 import os
 import re
@@ -19,6 +21,8 @@ JAX_PKG = re.compile(r"\bhortimapping_tpu\b(?!_torch)")
 JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
 # the card's machine has none of these
 HOST_ONLY_IMPORT = re.compile(r"^\s*(import|from)\s+(cv2|PIL|click)\b", re.M)
+# optional everywhere: never imported when a module is
+MODULE_LEVEL_WANDB = re.compile(r"^(import|from)\s+wandb\b", re.M)
 
 
 def _sources():
@@ -38,6 +42,7 @@ def test_sources_do_not_import_jax_or_the_jax_package():
             text = f.read()
         assert not JAX_IMPORT.search(text), path
         assert not HOST_ONLY_IMPORT.search(text), path
+        assert not MODULE_LEVEL_WANDB.search(text), path
         for line in text.splitlines():
             if "import" in line:
                 assert not JAX_PKG.search(line), f"{path}: {line}"
@@ -57,8 +62,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import hortimapping_tpu_torch.metrics.chamfer, hortimapping_tpu_torch.tools.synthetic\n"
         "import hortimapping_tpu_torch.pipeline.wild, hortimapping_tpu_torch.tools.make_demo_data\n"
         "import hortimapping_tpu_torch.data.imageio, hortimapping_tpu_torch.utils.misc\n"
+        "import hortimapping_tpu_torch.pipeline.challenge, hortimapping_tpu_torch.pipeline.lab\n"
+        "import hortimapping_tpu_torch.data.rgbd, hortimapping_tpu_torch.data.challenge\n"
+        "import hortimapping_tpu_torch.metrics.precision_recall\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click')]\n"
+        "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click', 'wandb')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -67,7 +75,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_entry_points_default_to_cuda_and_raise_without_a_card():
+def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from hortimapping_tpu_torch import resolve_device
@@ -112,4 +120,31 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         wild.main(["-c", os.path.join(ROOT, "configs", "wild_pepper_tpu.yaml")])
     with pytest.raises(RuntimeError, match="CUDA"):
         make_demo_data.render_frame(np.eye(4), np.eye(3), 4, 4, [], 0.55)
+
+    from hortimapping_tpu_torch.metrics.chamfer import ChamferDistance
+    from hortimapping_tpu_torch.metrics.precision_recall import PrecisionRecall
+    from hortimapping_tpu_torch.optim.lm import shape_opt_deepsdf, shape_opt_deepsdf_batched
+    from hortimapping_tpu_torch.pipeline import challenge, lab
+
+    for fn in (shape_opt_deepsdf, shape_opt_deepsdf_batched):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(params, spec, None, None, None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChamferDistance()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PrecisionRecall(0.001, 0.01, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        challenge.run_challenge({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        challenge.main(["-c", os.path.join(ROOT, "configs",
+                                           "shape_completion_challenge_pepper_tpu.yaml")])
+    for multi in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lab.run_lab_eval({}, multi)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lab.main(["-c", os.path.join(ROOT, "configs", "lab_pepper_tpu.yaml"), "--multi_frame"])
+    for gen in (make_demo_data.make_challenge_dataset, make_demo_data.make_lab_dataset):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gen(str(tmp_path / gen.__name__), assets, n_fruits=1, n_frames=1)
+        assert not os.path.exists(tmp_path / gen.__name__)   # refused before writing
     assert resolve_device("cpu") == torch.device("cpu")
