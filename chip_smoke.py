@@ -53,8 +53,7 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      the port's generator to a temporary directory; B1 (the SDF term, and
      the DeepSDF baseline's lanes form: the table mean, pose frozen, two
      lanes finished), B2, B3 and B4 vs their plain versions on the path's
-     own observations; the metrics' nearest-neighbour engines (brute force
-     on the card vs the host KD-tree, 1e8 to 3e10 pairs);
+     own observations;
      `run_challenge` on configs/shape_completion_challenge_pepper_tpu.yaml
      (pose known) timed as the median of 3 after a warm-up with its split
      (load + depth filter, cleaning, ray sampling, solve, meshing, metrics,
@@ -62,14 +61,16 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      counts; the DeepSDF baseline run with its B1 launches; the functional
      gate at B=8 (plain versions, mean CD within 0.3 mm);
  11. the lab path: 32 peppers in the IGG lab layout (5 frames of 640x480)
-     from the port's generator; B1, B2, B3 and B4 vs their plain versions
-     on the multi-frame path's observations; `run_lab_eval` under
+     from the port's generator; `run_lab_eval` under
      configs/lab_pepper_tpu.yaml multi-frame on all 32 and single-frame on
-     the first 4 fruits, each timed with its split, launch counts and CD;
-     the multi-frame functional gate at B=8; 8 berries under
-     configs/lab_berry.yaml multi-frame (10 frames, cut from 50), timed,
-     and B4 vs its plain version on the berry's 80^3 grid under the
-     surface gate of phase 3;
+     the first 4 fruits (20 lanes of one valid frame each), each timed as
+     the median of 3 after a warm-up with its split, launch counts and CD,
+     and B1, B2, B3 and B4 vs their plain versions on each run's own
+     observations; the multi-frame functional gate at B=8; 8 berries under
+     configs/lab_berry.yaml multi-frame (10 frames, cut from 50), timed the
+     same way, B1 and B2 vs their plain versions on the berry run's
+     observations, B4 on the berry's 80^3 grid under the surface gate of
+     phase 3, and the berry run's functional gate;
  12. one JSON line of kernel records, then the JSON result line.
 With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
 challenge run and one lab multi-frame run are traced by torch.profiler
@@ -120,9 +121,6 @@ LAB_SINGLE_FRUITS = 4          # fruits of the single-frame run (one lane a fram
 BERRY_FRUITS = 8
 BERRY_FRAMES = 10              # cut from lab_berry.yaml's frame_per_fruit 50: its n_frame is 10
 N_PATH_GATE = 8                # fruits of the challenge and lab functional gates
-# pair counts of the nearest-neighbour engine scan (brute force on the card
-# vs scipy's KD-tree on the host): 1e8 to 3e10 pairs, 3e9 among them
-NN_SCAN_POINTS = (10_000, 31_623, 54_772, 100_000, 173_205)
 # B3 in bf16 vs its plain version: a summation-order flip moves one
 # activation by one bf16 ulp (2^-8 relative), which reaches the tanh output
 # damped; the median stays near f32 level and 99 % of rows stay within 2 %
@@ -317,18 +315,19 @@ def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None):
                 bound_by=bound_by)
 
 
-def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev):
+def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
+                 cube_radius=CUBE_RADIUS):
     """B2 vs its plain version at one LM phase's render shape (its
-    subsampled observations and config) with two frozen lanes: bf16 under
-    the fused-kernel gate, and a small f32 slice under the tight one;
-    timed, with its bound."""
+    subsampled observations and config, the path's cube radius) with two
+    frozen lanes: bf16 under the fused-kernel gate, and a small f32 slice
+    under the tight one; timed, with its bound."""
     import torch
 
     from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
     from hortimapping_tpu_torch.ops.render import sample_points
     from hortimapping_tpu_torch.optim.lm import render_geometry
 
-    T_oc, depths, bbx = render_geometry(sub_cfg, sub_obs, T_ow, CUBE_RADIUS)
+    T_oc, depths, bbx = render_geometry(sub_cfg, sub_obs, T_ow, cube_radius)
     pts = sample_points(sub_obs.rays, depths, T_oc).contiguous()
     is_fg = torch.arange(sub_cfg.n_rays, device=dev) < sub_cfg.n_fg_pix
     ray_valid = sub_obs.ray_valid & sub_obs.frame_valid[..., None]
@@ -955,53 +954,20 @@ def subset_dir(src_split: str, dst_root: str, split: str, names) -> str:
 @contextlib.contextmanager
 def capture_solve(module, seen: dict):
     """Within the block, `module.warmstart_solve` records the observations,
-    start latents and pose inits it is called with into `seen`."""
+    start latents and pose inits it is called with, and its result, into
+    `seen`."""
     solve = module.warmstart_solve
 
     def capture(params, spec, cfg, table, obs, lat0, T0, *a, **k):
-        seen.update(obs=obs, lat0=lat0, T0=T0)
-        return solve(params, spec, cfg, table, obs, lat0, T0, *a, **k)
+        res = solve(params, spec, cfg, table, obs, lat0, T0, *a, **k)
+        seen.update(obs=obs, lat0=lat0, T0=T0, res=res)
+        return res
 
     module.warmstart_solve = capture
     try:
         yield
     finally:
         module.warmstart_solve = solve
-
-
-def nn_engine_scan(dev) -> None:
-    """The nearest-neighbour engines of the metrics at 1e8 to 3e10 pairs:
-    the tiled brute force on the card vs scipy's KD-tree on the host (all
-    cores), both held to each other; where the first wins sets
-    `metrics.chamfer.BRUTE_FORCE_MAX_PAIRS["cuda"]`."""
-    import numpy as np
-    import torch
-
-    from hortimapping_tpu_torch.metrics import chamfer
-
-    rng = np.random.default_rng(3)
-    rows = []
-    for n in NN_SCAN_POINTS:
-        a = (rng.normal(size=(n, 3)) * 0.04 + 0.5).astype(np.float32)
-        b = (rng.normal(size=(n, 3)) * 0.04 + 0.5).astype(np.float32)
-        ta, tb = torch.as_tensor(a).to(dev), torch.as_tensor(b).to(dev)
-        got = chamfer.nn_distances(ta, tb).cpu().numpy()
-        t_dev = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            chamfer.nn_distances(ta, tb).cpu()
-            t_dev.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        want = chamfer.nn_distances_kdtree(a, b)
-        t_tree = time.perf_counter() - t0
-        err = float(np.abs(got - want).max())
-        assert err <= 1e-6, (n, err)
-        rows.append(f"{n * n:.1e} pairs: card {np.median(t_dev) * 1e3:.1f} ms, KD-tree "
-                    f"{t_tree * 1e3:.1f} ms (max |d| {err:.2g})")
-    print(f"metrics NN engines (brute force on the card, median of 3, vs host KD-tree; the card "
-          f"up to {chamfer.BRUTE_FORCE_MAX_PAIRS['cuda']:.0e} pairs): " + " | ".join(rows),
-          flush=True)
 
 
 def challenge_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N_FRUITS,
@@ -1105,7 +1071,6 @@ def challenge_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fr
                             x=torch.cat([lat0[:, None].expand(B, N_pts, C), obs.points_w],
                                         dim=-1).contiguous())
         b2 = check_render("challenge", pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
-        nn_engine_scan(dev)
 
         times, splits = [], []
         for _ in range(reps):
@@ -1180,18 +1145,20 @@ def lab_split(names, path: str) -> str:
 
 def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N_FRUITS,
              size=CHALLENGE_SIZE, n_frames=LAB_FRAMES, n_single=LAB_SINGLE_FRUITS,
-             n_berry=BERRY_FRUITS, berry_frames=BERRY_FRAMES, n_gate=N_PATH_GATE,
+             n_berry=BERRY_FRUITS, berry_frames=BERRY_FRAMES, n_gate=N_PATH_GATE, reps=3,
              deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32"),
              berry_dir=os.path.join(ROOT, "assets", "synthetic_berry_32")):
     """Phase 11, the IGG lab path: `n_fruits` peppers in the lab layout
-    written by the port's generator; B1, B2, B3 and B4 against their plain
-    versions on the multi-frame path's own observations; `run_lab_eval`
-    under configs/lab_pepper_tpu.yaml multi-frame on all fruits and
-    single-frame on the first `n_single`, each timed with its launch counts
-    and CD; the multi-frame functional gate at `n_gate` fruits; then
-    `n_berry` berries under configs/lab_berry.yaml multi-frame, with B4
-    against its plain version on the berry's 80^3 grid under the surface
-    gate of phase 3."""
+    written by the port's generator; `run_lab_eval` under
+    configs/lab_pepper_tpu.yaml multi-frame on all fruits and single-frame
+    on the first `n_single`, each timed as the median of `reps` after a
+    warm-up with its split, launch counts and CD, and B1, B2, B3 and B4
+    held against their plain versions on each run's own observations; the
+    multi-frame functional gate at `n_gate` fruits; then `n_berry` berries
+    under configs/lab_berry.yaml multi-frame, timed the same way, with B1
+    and B2 against their plain versions on the berry run's observations,
+    B4 on the berry's 80^3 grid under the surface gate of phase 3, and the
+    berry run's functional gate."""
     import tempfile
 
     import numpy as np
@@ -1201,7 +1168,7 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
     from hortimapping_tpu_torch.data.mesh import TriangleMesh
     from hortimapping_tpu_torch.metrics.chamfer import ChamferDistance
     from hortimapping_tpu_torch.metrics.precision_recall import PrecisionRecall
-    from hortimapping_tpu_torch.models.workspace import config_decoder
+    from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
     from hortimapping_tpu_torch.ops import mlp_kernels
     from hortimapping_tpu_torch.ops.mesher import MeshExtractor
     from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
@@ -1214,6 +1181,7 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
     cfg["vis"]["log_on"] = False
     opt_cfg = JointOptConfig.from_dict(cfg)
     assert opt_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
+    assert opt_cfg.retrieval_n_scales == 1
     C = spec.code_length
     W, H = size
     quiet = lambda *a: None
@@ -1233,64 +1201,82 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
             ("metrics: Chamfer", ChamferDistance, "update"),
             ("metrics: P/R", PrecisionRecall, "update")))
 
-        def run(cfg_, multi, label, need=LaunchCounts.ALL, warm=False):
-            if warm:
-                lab.run_lab_eval(cfg_, multi, log=quiet, device=dev)
-            counts = LaunchCounts()
-            with stages.timing():
-                t0 = time.perf_counter()
-                summary = lab.run_lab_eval(cfg_, multi, log=quiet, device=dev)
-                torch.cuda.synchronize()
-                stages.t["batch"] = time.perf_counter() - t0
-            counts.read()
+        def run(cfg_, multi, label, need=LaunchCounts.ALL):
+            """A warm-up, then `reps` timed runs; returns the last summary
+            and what its solve was given and gave."""
+            seen = {}
+            lab.run_lab_eval(cfg_, multi, log=quiet, device=dev)
+            times, splits = [], []
+            with capture_solve(lab, seen):
+                for _ in range(reps):
+                    counts = LaunchCounts()
+                    with stages.timing():
+                        t0 = time.perf_counter()
+                        summary = lab.run_lab_eval(cfg_, multi, log=quiet, device=dev)
+                        torch.cuda.synchronize()
+                        stages.t["batch"] = time.perf_counter() - t0
+                    counts.read()
+                    times.append(stages.t["batch"])
+                    splits.append(stages.split())
             counts.require(need, label)
             n = summary["frames"]
-            ms = stages.t["batch"] * 1e3
-            print(f"{label}: {n} instances | {ms:.1f} ms a run, {ms / n:.2f} ms an instance | "
-                  f"solve {summary['timing_s'] * 1e3:.2f} ms an instance (the summary's timing) | "
-                  f"mean iters {summary['iteration']:.2f} | CD {summary['CD[mm]']:.4f} mm, "
-                  f"F-score {summary['F-score[%]']:.2f} % at 5 mm vs the laser GT | launches "
-                  f"{counts} | {smi}", flush=True)
-            print(f"{label} split (ms): " + ", ".join(f"{k} {v * 1e3:.1f}"
-                                                      for k, v in stages.split().items()),
+            ms = float(np.median(times)) * 1e3
+            med = {k: float(np.median([sp[k] for sp in splits])) * 1e3 for k in splits[0]}
+            print(f"{label}: {n} instances | {ms:.1f} ms a run (median of {reps} after a warm-up: "
+                  f"{[round(t * 1e3, 1) for t in times]}), {ms / n:.2f} ms an instance | solve "
+                  f"{summary['timing_s'] * 1e3:.2f} ms an instance (the summary's timing) | mean "
+                  f"iters {summary['iteration']:.2f} | CD {summary['CD[mm]']:.4f} mm, F-score "
+                  f"{summary['F-score[%]']:.2f} % at 5 mm vs the laser GT | launches {counts} | "
+                  f"{smi}", flush=True)
+            print(f"{label} split (median ms): " + ", ".join(f"{k} {v:.1f}" for k, v in med.items()),
                   flush=True)
             assert np.isfinite(summary["CD[mm]"]) and len(summary["cd_per_fruit_mm"]) == n
-            return summary
+            return summary, seen
 
-        # no warm-up: phase 10 ran every kernel and library call of this path;
-        # the run hands over its own observations
-        seen = {}
-        with capture_solve(lab, seen):
-            s_multi = run(cfg, True, f"lab path, multi-frame (configs/{LAB_YAML})")
+        def check_kernels(label, obs, T0):
+            """B3, B4, B1 and B2 against their plain versions on a run's own
+            observations, at its retrieved codes and poses."""
+            B = obs.points_w.shape[0]
+            lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
+            lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0,
+                                              device=dev)
+            P = opt_cfg.retrieval_score_pts
+            G = min(16, B)   # one scoring launch: score_chunk lanes at unit scale
+            pts0 = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+            check_fwd(label, pk16 if opt_cfg.retrieval_score_bf16 else pk32,
+                      table[:(1 << 15) // P], pts0[:G, :P], obs.point_valid[:G, :P],
+                      spec.clamping_distance)
+            check_shared_latent(label, params, spec, pk16, pk32, lat_r, dev, surface=False)
+            pts_o = obs.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
+            N_pts = pts_o.shape[1]
+            check_mlp(label, pk32, table, B, N_pts, dev,
+                      x=torch.cat([lat_r[:, None].expand(B, N_pts, C), pts_o], -1).contiguous())
+            check_render(label, pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
+
+        # multi-frame on all fruits
+        s_multi, seen = run(cfg, True, f"lab path, multi-frame (configs/{LAB_YAML})")
         assert s_multi["frames"] == n_fruits
         if profile:
             profile_main(lambda: lab.run_lab_eval(cfg, True, log=quiet, device=dev), smi, profile,
                          "lab path, multi-frame")
-        obs, T0 = seen["obs"], seen["T0"]
-        B = obs.points_w.shape[0]
+        obs = seen["obs"]
         print(f"lab set: {n_fruits} peppers x {n_frames} frames {W}x{H} (cut from frame_per_fruit "
               f"{cfg['frame_per_fruit']}; lab layout: depth in mm, 255-valued masks, integrated "
               f"map, laser GT) rendered and written in {render_s:.1f} s, {nbytes / 1e6:.1f} MB | "
               f"multi-frame: {int(obs.frame_valid.sum())} of {obs.frame_valid.numel()} frame "
               f"slots, {int(obs.point_valid.sum())} of {obs.point_valid.numel()} point slots",
               flush=True)
-        lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
-        lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0, device=dev)
-        P = opt_cfg.retrieval_score_pts
-        G = min(16, B)   # one scoring launch: score_chunk fruits at unit scale
-        pts0 = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
-        assert opt_cfg.retrieval_n_scales == 1
-        check_fwd("lab", pk16 if opt_cfg.retrieval_score_bf16 else pk32, table[:(1 << 15) // P],
-                  pts0[:G, :P], obs.point_valid[:G, :P], spec.clamping_distance)
-        check_shared_latent("lab", params, spec, pk16, pk32, lat_r, dev, surface=False)
-        pts_o = obs.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
-        N_pts = pts_o.shape[1]
-        check_mlp("lab", pk32, table, B, N_pts, dev,
-                  x=torch.cat([lat_r[:, None].expand(B, N_pts, C), pts_o], dim=-1).contiguous())
-        check_render("lab multi-frame", pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
+        check_kernels("lab multi-frame", obs, seen["T0"])
+
+        # single-frame on the first n_single fruits: a lane a frame, the
+        # other frame slots of each lane invalid
         cfg_s = dict(cfg, split=lab_split(names[:n_single], os.path.join(root, "single.json")))
-        s_single = run(cfg_s, False, f"lab path, single-frame, {n_single} fruits")
+        s_single, seen = run(cfg_s, False, f"lab path, single-frame, {n_single} fruits")
         assert s_single["frames"] >= n_single
+        obs = seen["obs"]
+        print(f"lab single-frame: {obs.points_w.shape[0]} lanes, {int(obs.frame_valid.sum())} of "
+              f"{obs.frame_valid.numel()} frame slots valid", flush=True)
+        check_kernels("lab single-frame", obs, seen["T0"])
 
         # functional gate: multi-frame on the first n_gate fruits
         cfg_g = dict(cfg, split=lab_split(names[:n_gate], os.path.join(root, "gate.json")))
@@ -1312,38 +1298,49 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
         cfg_b = load_config(os.path.join(ROOT, "configs", BERRY_YAML))
         cfg_b.update(deepsdf_dir=berry_dir, run_name="chip_smoke_berry")
         cfg_b["vis"]["log_on"] = False
+        opt_b = JointOptConfig.from_dict(cfg_b)
+        assert opt_b.fused_bf16 and opt_b.init_mode == "mean"
         t0 = time.perf_counter()
         nbytes = gen.make_lab_dataset(berry, berry_dir, n_berry, berry_frames, W, H, device=dev)
         render_s = time.perf_counter() - t0
         cfg_b.update(data_dir=berry, split=os.path.join(berry, "split.json"))
         vis = cfg_b["vis"]
-        voxels = int(2 * vis["object_radius_max_m"] * 1e3 / vis["mc_res_mm"])
+        radius = vis["object_radius_max_m"]
+        voxels = int(2 * radius * 1e3 / vis["mc_res_mm"])
         print(f"berry set: {n_berry} berries x {berry_frames} frames {W}x{H} (cut from "
               f"frame_per_fruit {cfg_b['frame_per_fruit']}; n_frame "
               f"{cfg_b['opt']['render']['n_frame']}) rendered and written in {render_s:.1f} s, "
               f"{nbytes / 1e6:.1f} MB | grid {voxels}^3 at {vis['mc_res_mm']} mm", flush=True)
-        solved = {}
-        solve = lab.warmstart_solve
-
-        def keep(*a, **k):
-            res = solve(*a, **k)
-            solved["latent"] = res.latent
-            return res
-
-        lab.warmstart_solve = keep
-        try:
-            # mean init (no opt.tpu block): no scoring launch
-            s_berry = run(cfg_b, True, f"lab berry, multi-frame (configs/{BERRY_YAML})",
-                          need=("mlp_fwd_grad", "fused_render", "mlp_shared_latent"), warm=True)
-        finally:
-            lab.warmstart_solve = solve
+        # mean init (no opt.tpu block): no scoring launch
+        s_berry, seen = run(cfg_b, True, f"lab berry, multi-frame (configs/{BERRY_YAML})",
+                            need=("mlp_fwd_grad", "fused_render", "mlp_shared_latent"))
         params_b, spec_b = config_decoder(berry_dir, device=dev)
-        b4 = check_shared_latent("berry", params_b, spec_b,
-                                 mlp_kernels.pack_params(params_b, spec_b, torch.bfloat16),
-                                 mlp_kernels.pack_params(params_b, spec_b, torch.float32),
-                                 solved["latent"], dev, voxels=voxels,
-                                 cube_radius=vis["object_radius_max_m"])
-        print(f"lab phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+        table_b = load_latent_vectors(berry_dir, device=dev)
+        pk16_b = mlp_kernels.pack_params(params_b, spec_b, torch.bfloat16)
+        pk32_b = mlp_kernels.pack_params(params_b, spec_b, torch.float32)
+        # B1 and B2 at the berry run's start (the table mean, the pose inits)
+        obs, lat0, T0 = seen["obs"], seen["lat0"], seen["T0"]
+        B = obs.points_w.shape[0]
+        pts_o = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+        N_pts = pts_o.shape[1]
+        check_mlp("berry", pk32_b, table_b, B, N_pts, dev,
+                  x=torch.cat([lat0[:, None].expand(B, N_pts, -1), pts_o], -1).contiguous())
+        check_render("berry", pk16_b, pk32_b, obs, opt_b, lat0.contiguous(), T0, dev,
+                     cube_radius=radius)
+        b4 = check_shared_latent("berry", params_b, spec_b, pk16_b, pk32_b, seen["res"].latent,
+                                 dev, voxels=voxels, cube_radius=radius)
+        # the berry run's functional gate
+        with plain_versions():
+            t0 = time.perf_counter()
+            s_bp = lab.run_lab_eval(cfg_b, True, log=quiet, device=dev)
+            t_p = time.perf_counter() - t0
+        gap = s_berry["CD[mm]"] - s_bp["CD[mm]"]
+        print(f"berry functional gate: B={n_berry}, mean CD kernels {s_berry['CD[mm]']:.4f} mm vs "
+              f"plain {s_bp['CD[mm]']:.4f} mm, gap {gap:+.4f} mm (gate {CD_GATE_MM} mm) | plain run "
+              f"{t_p * 1e3:.1f} ms | mean iters kernels {s_berry['iteration']:.2f}, plain "
+              f"{s_bp['iteration']:.2f} | lab phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        assert abs(gap) <= CD_GATE_MM, gap
     return dict(b4_berry=b4, berry_cd=s_berry["CD[mm]"])
 
 

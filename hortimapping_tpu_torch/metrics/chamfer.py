@@ -27,9 +27,9 @@ TILE = 4096
 TILE_ELEMS = 1 << 26        # a tile's distance matrix stays under 256 MB of f32
 # above this many pairs the host KD-tree takes over from the brute force:
 # on the CPU at the JAX package's CPU crossover (so both packages pick the
-# same engine there); on the card where chip_smoke's engine scan puts the
-# crossover (H100 against 8 host cores: the brute force wins at 1e9 pairs,
-# the tree at 1e10)
+# same engine there); on the card at the crossover measured on an H100
+# against 8 host cores (the brute force wins at 1e9 pairs, the tree at 1e10;
+# PERF.md)
 BRUTE_FORCE_MAX_PAIRS = {"cpu": int(1e8), "cuda": int(3e9)}
 
 

@@ -26,11 +26,15 @@ Tolerances.
   iteration; on the lab single-frame fixture JAX's compiled loop and the
   same iteration dispatched op by op end 0.1 apart in one lane's latent,
   while a one-ulp change of JAX's start moves neither. So that schedule is
-  held to max(bound above, 4x JAX's own movement), measured by two probes
-  of JAX's pipeline, as `tests/test_torch_wild.py` holds its reference
-  schedule: JAX's solve continued from the port's first iterate (which must
-  agree with JAX's own first iterate within 1e-6), and JAX's LM iteration
-  dispatched op by op instead of compiled into one loop.
+  also run under two probes of JAX's pipeline: JAX's solve continued from
+  the port's first iterate (which must agree with JAX's own first iterate
+  within 1e-6), and JAX's LM iteration dispatched op by op instead of
+  compiled into one loop. A lane that no probe moves by more than 2e-4 is
+  held to JAX's own run; a lane a probe moves further is held, at the same
+  bounds (2e-4, 0.05 mm), to the one of JAX's runs nearest to the port's,
+  and P/R/F1 then to the larger of 0.5 points and the largest gap between
+  two of JAX's runs. (Measured: each such lane lies within 5e-7 of one of
+  JAX's runs.)
 """
 
 import dataclasses
@@ -271,7 +275,8 @@ def _check_schedule(jcfg):
             and jcfg.pose_polish_iters == 0), "the probes model the fixed-lambda mean-init solve"
 
 
-def jax_from_port_first_iterate(cfg_dict, params, spec, jcfg, obs, lat0, T0, radius, pose_known):
+def jax_from_port_first_iterate(cfg_dict, params, spec, jcfg, table, obs, lat0, T0, radius,
+                                pose_known):
     """JAX's solve continued from the port's first iterate, which must agree
     with JAX's own first iterate within 1e-6."""
     _check_schedule(jcfg)
@@ -294,7 +299,7 @@ def jax_from_port_first_iterate(cfg_dict, params, spec, jcfg, obs, lat0, T0, rad
                                            pose_known, 1)
 
 
-def jax_op_by_op(cfg_dict, params, spec, jcfg, obs, lat0, T0, radius, pose_known):
+def jax_op_by_op(cfg_dict, params, spec, jcfg, table, obs, lat0, T0, radius, pose_known):
     """JAX's own solve with its LM iteration dispatched op by op instead of
     compiled into one loop: the same arithmetic, rounded as XLA's unfused
     operations round it."""
@@ -304,6 +309,20 @@ def jax_op_by_op(cfg_dict, params, spec, jcfg, obs, lat0, T0, radius, pose_known
     while bool(jnp.any(~(st.done | st.failed))):
         st = jax.vmap(jlm._freeze_if_done)(st, step(obs, st))
     return JResult(st.latent, st.T_ow, st.iter_count, st.failed, st.converged)
+
+
+def jax_one_ulp_up(cfg_dict, params, spec, jcfg, table, obs, lat0, T0, radius, pose_known):
+    """JAX's own solve with its start latent (the retrieved one, where the
+    schedule retrieves) moved one ulp up."""
+    assert jcfg.multi_start <= 1 and jcfg.rescue_starts == 0
+    if jcfg.init_mode == "retrieval":
+        lat0, T0, _, _ = jws.retrieval_init_batched(
+            params, spec, table, obs.points_w, obs.point_valid, top_k=jcfg.retrieval_top_k,
+            n_score_pts=jcfg.retrieval_score_pts, n_scales=jcfg.retrieval_n_scales,
+            scale_min=jcfg.retrieval_scale_min, scale_max=jcfg.retrieval_scale_max, T_init=T0,
+            score_bf16=jcfg.retrieval_score_bf16, prior_w=jcfg.retrieval_prior_w)
+    return jlm.solve_in_chunks(params, spec, jcfg, obs, jnp.nextafter(lat0, jnp.inf), T0, radius,
+                               pose_known=pose_known)
 
 
 PROBES = (jax_from_port_first_iterate, jax_op_by_op)
@@ -323,7 +342,7 @@ def run_jax_pipeline(run, cfg, monkeypatch, module, probe=None, **kw):
             res = solve(params, spec, opt_cfg, table, obs, lat0, T0, radius,
                         pose_known=pose_known, **k)
         else:
-            res = probe(cfg, params, spec, opt_cfg, obs, lat0, T0, radius, pose_known)
+            res = probe(cfg, params, spec, opt_cfg, table, obs, lat0, T0, radius, pose_known)
         seen["lanes"] = tuple(np.asarray(a) for a in (res.latent, res.T_ow, res.iter_count,
                                                        res.failed))
         return res
@@ -340,9 +359,9 @@ def run_jax_pipeline(run, cfg, monkeypatch, module, probe=None, **kw):
     return summary, seen["lanes"]
 
 
-def jax_movement(run, cfg, monkeypatch, module, **kw):
-    """(summary, lanes) of every probe run of the JAX pipeline."""
-    return [run_jax_pipeline(run, cfg, monkeypatch, module, probe=p, **kw) for p in PROBES]
+def jax_movement(run, cfg, monkeypatch, module, probes=PROBES, **kw):
+    """(summary, lanes) of the JAX pipeline's run under each probe."""
+    return [run_jax_pipeline(run, cfg, monkeypatch, module, probe=p, **kw) for p in probes]
 
 
 def run_port_pipeline(run, cfg, monkeypatch, module, **kw):
@@ -374,37 +393,51 @@ def mesh_gap(path_a, path_b):
     return 0.5 * (cKDTree(pb).query(pa)[0].mean() + cKDTree(pa).query(pb)[0].mean())
 
 
+def lane_distance(a, b):
+    """Per lane, the largest latent or pose entry difference of two runs."""
+    d = np.abs(a[0] - b[0]).max(1)
+    if a[1] is not None:
+        d = np.maximum(d, np.abs(a[1] - b[1]).max((1, 2)))
+    return d
+
+
+PRF = ("F-score[%]", "Precision[%]", "Recall[%]")
+
+
 def hold_to_jax(got, want, got_lanes, want_lanes, moved=()):
     """The summary and per-lane bounds of the module docstring; `moved`:
-    (summary, lanes) of JAX's probe runs, which widen each bound to 4x
-    JAX's own movement."""
+    (summary, lanes) of JAX's probe runs. A lane that no probe moves by
+    more than 2e-4 is held to JAX's own run. A lane that a probe moves
+    further is held, at the same bounds, to the one of JAX's runs (its own
+    or a probe's) that lies nearest to the port's in latent and pose; the
+    summary's P/R/F1 then to the larger of 0.5 and the largest gap between
+    two of JAX's runs. Returns the index of the run each lane was held to
+    (0: JAX's own)."""
     np.testing.assert_array_equal(got_lanes[2], want_lanes[2])
     np.testing.assert_array_equal(got_lanes[3], want_lanes[3])
     n = len(want_lanes[2])
-    lane_tol = np.full(n, 2e-4)
-    cd_tol = np.full(n, 0.05)
-    f_tol = 0.5
-    for m_sum, m_lanes in moved:
-        spread = np.abs(m_lanes[0] - want_lanes[0]).max(1)
-        if want_lanes[1] is not None:
-            spread = np.maximum(spread, np.abs(m_lanes[1] - want_lanes[1]).max((1, 2)))
-        lane_tol = np.maximum(lane_tol, 4 * spread)
-        cd_tol = np.maximum(cd_tol, 4 * np.abs(np.subtract(m_sum["cd_per_fruit_mm"],
-                                                           want["cd_per_fruit_mm"])))
-        f_tol = max(f_tol, 4 * max(abs(m_sum[k] - want[k])
-                                   for k in ("F-score[%]", "Precision[%]", "Recall[%]")))
+    runs = [(want, want_lanes), *moved]
+    wide = np.zeros(n, bool)
+    for _, m_lanes in moved:
+        wide |= lane_distance(m_lanes, want_lanes) > 2e-4
+    dist = np.stack([lane_distance(got_lanes, lanes) for _, lanes in runs])
+    pick = np.where(wide, dist.argmin(0), 0)
     for b in range(n):
-        np.testing.assert_allclose(got_lanes[0][b], want_lanes[0][b], atol=lane_tol[b], rtol=0)
-        if want_lanes[1] is not None:
-            np.testing.assert_allclose(got_lanes[1][b], want_lanes[1][b], atol=lane_tol[b],
-                                       rtol=0)
-    assert np.all(np.abs(np.subtract(got["cd_per_fruit_mm"], want["cd_per_fruit_mm"])) <= cd_tol), (
-        got["cd_per_fruit_mm"], want["cd_per_fruit_mm"], cd_tol)
-    for k in ("F-score[%]", "Precision[%]", "Recall[%]"):
+        s, lanes = runs[pick[b]]
+        np.testing.assert_allclose(got_lanes[0][b], lanes[0][b], atol=2e-4, rtol=0)
+        if lanes[1] is not None:
+            np.testing.assert_allclose(got_lanes[1][b], lanes[1][b], atol=2e-4, rtol=0)
+        assert abs(got["cd_per_fruit_mm"][b] - s["cd_per_fruit_mm"][b]) <= 0.05, (
+            b, pick[b], got["cd_per_fruit_mm"], s["cd_per_fruit_mm"])
+    f_tol = 0.5
+    if wide.any():
+        f_tol = max([f_tol] + [abs(s_a[k] - s_b[k]) for i, (s_a, _) in enumerate(runs)
+                               for s_b, _ in runs[i + 1:] for k in PRF])
+    for k in PRF:
         assert abs(got[k] - want[k]) <= f_tol, (k, got[k], want[k], f_tol)
     assert got["threshold[mm]"] == want["threshold[mm]"]
     assert sorted(got) == sorted(want)
-    return lane_tol, cd_tol
+    return pick
 
 
 CASES = {

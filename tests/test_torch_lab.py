@@ -11,9 +11,9 @@ equal; masks equal on >= 99.9 % of pixels; depth (stored in mm) within
 of equal size and within 1e-5 m. Pipelines: the bounds of
 `tests/test_torch_challenge.py` (instance lists, iteration counts equal,
 meshes within half a voxel, per-instance Chamfer within 0.05 mm, P/R/F1 at
-5 mm within 0.5 points, latents and poses within 2e-4), where the
-fixed-lambda mean-init schedule is held to 4x JAX's own movement from the
-port's first iterate, as there. Berry: SDF within 1e-5 and its input
+5 mm within 0.5 points, latents and poses within 2e-4), where a lane that
+a probe of JAX's own solve moves by more than 2e-4 is held to the nearest
+of JAX's runs, as there. Berry: SDF within 1e-5 and its input
 gradient within 1e-4 of its largest entry (f32 sums of 512 products in
 another order); the f16 80^3 grid within one f16 ulp of JAX's.
 """
@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from hortimapping_tpu.models.decoder import decoder_sdf_and_input_grad as jsdf_grad
 from hortimapping_tpu.models.workspace import config_decoder as jconfig_decoder
@@ -44,12 +45,15 @@ from test_pipeline_lab import ASSET_DIR, _cfg
 from test_torch_challenge import (
     hold_to_jax,
     jax_movement,
+    jax_one_ulp_up,
     run_jax_pipeline,
     run_port_pipeline,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BERRY = os.path.join(ROOT, "assets", "synthetic_berry_32")
+with open(os.path.join(ROOT, "configs", "lab_pepper_tpu.yaml")) as _f:
+    TPU_BLOCK = yaml.safe_load(_f)["opt"]["tpu"]
 
 pytestmark = pytest.mark.skipif(not os.path.isdir(ASSET_DIR), reason="synthetic assets not built")
 
@@ -112,6 +116,31 @@ def test_run_lab_eval_matches_jax(datasets, monkeypatch, multi_frame, baseline):
     if baseline == "none":
         moved = jax_movement(jlab.run_lab_eval, cfg, monkeypatch, jlab, multi_frame=multi_frame)
     hold_to_jax(got, want, got_lanes, want_lanes, moved)
+
+
+@pytest.mark.parametrize("multi_frame", [True, False])
+def test_run_lab_eval_on_the_tpu_block_matches_jax(datasets, monkeypatch, multi_frame):
+    """`configs/lab_pepper_tpu.yaml`'s opt.tpu block (retrieval warm start
+    at unit scale). Multi-frame is held to the flat bounds. Single-frame
+    runs its 10 iterations unconverged, and one lane crosses a render-band
+    edge at iteration 8 (the port agrees with JAX within 3e-6 up to
+    there): JAX alone moves that lane by ~5e-3 when its start latent moves
+    one ulp, so single-frame is held with that probe."""
+    _, jdir, _ = datasets
+    cfg = _cfg(jdir)
+    cfg["opt"]["tpu"] = dict(TPU_BLOCK)
+    want, want_lanes = run_jax_pipeline(jlab.run_lab_eval, cfg, monkeypatch, jlab,
+                                        multi_frame=multi_frame)
+    got, got_lanes = run_port_pipeline(tlab.run_lab_eval, cfg, monkeypatch, tlab,
+                                       multi_frame=multi_frame)
+    assert got["frames"] == want["frames"] >= 2
+    assert got["iteration"] == want["iteration"]
+    moved = ()
+    if not multi_frame:
+        moved = jax_movement(jlab.run_lab_eval, cfg, monkeypatch, jlab, probes=(jax_one_ulp_up,),
+                             multi_frame=multi_frame)
+    pick = hold_to_jax(got, want, got_lanes, want_lanes, moved)
+    assert multi_frame or np.count_nonzero(pick) <= 1
 
 
 def test_prepared_instances_match_jax(datasets):
