@@ -71,11 +71,37 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      same way, B1 and B2 vs their plain versions on the berry run's
      observations, B4 on the berry's 80^3 grid under the surface gate of
      phase 3, and the berry run's functional gate;
- 12. one JSON line of kernel records, then the JSON result line.
+ 12. the greenhouse path from disk: 8 CKA-layout data dirs of 4 fruits (seeds
+     9-16, 20 frames of 640x480 each) written by the port's generator;
+     `run_greenhouse_eval` multi-frame under configs/cka_pepper_tpu.yaml on
+     all 32 fruits, timed as the median of 2 after a warm-up with its split
+     (reading frames and PNGs, cleaning, pose init, background sampling,
+     ray sampling, solve, meshing, metrics, writing), CD, F-score, the pose
+     errors, the rescue's lanes and all four launch counts; B1, B2, B3 and
+     B4 vs their plain versions on the run's own observations; the
+     functional gate on the first 2 dirs (8 fruits, mean CD within 0.3 mm,
+     pose errors beside); single-frame under
+     configs/cka_pepper_single_tpu.yaml on the first dir (a lane a sampled
+     frame), timed the same way, B1 and B2 vs their plain versions on its
+     observations (each run's median of 2, cut from 3 for the script's
+     time);
+ 13. the serving path: `CompletionServer` (bench config with unit-scale
+     bf16 retrieval, coarse-to-fine LM, 40^3 meshing, max_batch 32) warmed
+     up, then a burst of 64 requests served as two batches of 32, each lane
+     equal to the direct `joint_opt_packed` of its batch at width 32 within
+     1e-5, the served meshes' CD to the GT surfaces, all four launch
+     counts; a stream of 40 requests one every 10 ms (widths, latency p50 /
+     p95 / max, fruits/s); admission control (`ServerOverloaded` at
+     max_queue 8) and a deadline of 0 behind a busy batch
+     (`DeadlineExceeded`);
+ 14. one JSON line of kernel records (the four kernels at their greenhouse
+     shapes, then each kernel on the greenhouse-from-disk runs and the
+     served batches), then the JSON result line.
 With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
-challenge run and one lab multi-frame run are traced by torch.profiler
-(device-time tables appended to FILE), and one more greenhouse batch with
-the SDF term's frozen-lane skip turned off.
+challenge run, one lab multi-frame run, one greenhouse-from-disk run and one
+served burst are traced by torch.profiler (device-time tables appended to
+FILE, idle share printed), and one more greenhouse batch with the SDF term's
+frozen-lane skip turned off.
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 4). The JAX package is never imported.
@@ -121,6 +147,24 @@ LAB_SINGLE_FRUITS = 4          # fruits of the single-frame run (one lane a fram
 BERRY_FRUITS = 8
 BERRY_FRAMES = 10              # cut from lab_berry.yaml's frame_per_fruit 50: its n_frame is 10
 N_PATH_GATE = 8                # fruits of the challenge and lab functional gates
+GREENHOUSE_SINGLE_YAML = "cka_pepper_single_tpu.yaml"
+GH_DIRS = 8                    # CKA-layout data dirs of the greenhouse path (seeds 9-16)
+GH_FRUITS_PER_DIR = 4          # every fruit stays in view of the generator's sweep
+GH_FRAMES = 20                 # frame_per_fruit of the CKA YAMLs: every frame sampled
+GH_GATE_DIRS = 2               # dirs of the greenhouse functional gate (8 fruits)
+GH_REPS = 2                    # timed runs of each greenhouse run, cut from 3 for the
+                               # script's time (a multi-frame run of the 32 fruits takes
+                               # ~22 s, ~10 s of it sampling the 8 background submaps)
+GH_MEMORY = "greenhouse in memory"   # the path of the kernels line's first four rows
+KERNEL_SOURCES = {             # kernel: (its source, the TPU kernel it replaces)
+    "mlp_fwd_grad": ("hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
+                     "hortimapping_tpu/ops/pallas_mlp.py:198"),
+    "fused_render": ("hortimapping_tpu_torch/csrc/fused_render.cu",
+                     "hortimapping_tpu/ops/pallas_render.py:100"),
+    "mlp_fwd": ("hortimapping_tpu_torch/csrc/mlp_fwd.cu", "hortimapping_tpu/ops/pallas_mlp.py:169"),
+    "mlp_shared_latent": ("hortimapping_tpu_torch/csrc/mlp_shared_latent.cu",
+                          "hortimapping_tpu/ops/pallas_mlp.py:303"),
+}
 # B3 in bf16 vs its plain version: a summation-order flip moves one
 # activation by one bf16 ulp (2^-8 relative), which reaches the tanh output
 # damped; the median stays near f32 level and 99 % of rows stay within 2 %
@@ -1136,6 +1180,39 @@ def challenge_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fr
     return dict(b1_baseline=b1_base, b2=b2)
 
 
+def check_path_kernels(label, params, spec, table, pk16, pk32, opt_cfg, obs, T0, dev,
+                       which=("mlp_fwd", "mlp_shared_latent", "mlp_fwd_grad", "fused_render")):
+    """B3, B4, B1 and B2 (those of `which`) against their plain versions on
+    a path's own observations (a unit-scale retrieval's: one scoring
+    launch of up to 16 lanes), at its retrieved codes and poses; returns
+    each kernel's check by name."""
+    import torch
+
+    from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+
+    B, C = obs.points_w.shape[0], spec.code_length
+    lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
+    lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0, device=dev)
+    out = {}
+    if "mlp_fwd" in which:
+        P = opt_cfg.retrieval_score_pts
+        G = min(16, B)   # one scoring launch: score_chunk lanes at unit scale
+        pts0 = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+        out["mlp_fwd"] = check_fwd(label, pk16 if opt_cfg.retrieval_score_bf16 else pk32,
+                                   table[:(1 << 15) // P], pts0[:G, :P], obs.point_valid[:G, :P],
+                                   spec.clamping_distance)
+    if "mlp_shared_latent" in which:
+        out["mlp_shared_latent"] = check_shared_latent(label, params, spec, pk16, pk32, lat_r,
+                                                       dev, surface=False)
+    pts_o = obs.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
+    N_pts = pts_o.shape[1]
+    out["mlp_fwd_grad"] = check_mlp(
+        label, pk32, table, B, N_pts, dev,
+        x=torch.cat([lat_r[:, None].expand(B, N_pts, C), pts_o], -1).contiguous())
+    out["fused_render"] = check_render(label, pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
+    return out
+
+
 def lab_split(names, path: str) -> str:
     """A lab split file listing the fruits `names` under "test"; returns its path."""
     with open(path, "w") as f:
@@ -1171,7 +1248,6 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
     from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
     from hortimapping_tpu_torch.ops import mlp_kernels
     from hortimapping_tpu_torch.ops.mesher import MeshExtractor
-    from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
     from hortimapping_tpu_torch.pipeline import lab
     from hortimapping_tpu_torch.tools import make_demo_data as gen
 
@@ -1182,7 +1258,6 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
     opt_cfg = JointOptConfig.from_dict(cfg)
     assert opt_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
     assert opt_cfg.retrieval_n_scales == 1
-    C = spec.code_length
     W, H = size
     quiet = lambda *a: None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lab_") as root:
@@ -1234,24 +1309,7 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
             return summary, seen
 
         def check_kernels(label, obs, T0):
-            """B3, B4, B1 and B2 against their plain versions on a run's own
-            observations, at its retrieved codes and poses."""
-            B = obs.points_w.shape[0]
-            lat0 = table.mean(0, keepdim=True).expand(B, C).contiguous()
-            lat_r, T_r = maybe_retrieval_init(params, spec, opt_cfg, table, obs, lat0, T0,
-                                              device=dev)
-            P = opt_cfg.retrieval_score_pts
-            G = min(16, B)   # one scoring launch: score_chunk lanes at unit scale
-            pts0 = obs.points_w @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
-            check_fwd(label, pk16 if opt_cfg.retrieval_score_bf16 else pk32,
-                      table[:(1 << 15) // P], pts0[:G, :P], obs.point_valid[:G, :P],
-                      spec.clamping_distance)
-            check_shared_latent(label, params, spec, pk16, pk32, lat_r, dev, surface=False)
-            pts_o = obs.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
-            N_pts = pts_o.shape[1]
-            check_mlp(label, pk32, table, B, N_pts, dev,
-                      x=torch.cat([lat_r[:, None].expand(B, N_pts, C), pts_o], -1).contiguous())
-            check_render(label, pk16, pk32, obs, opt_cfg, lat_r, T_r, dev)
+            check_path_kernels(label, params, spec, table, pk16, pk32, opt_cfg, obs, T0, dev)
 
         # multi-frame on all fruits
         s_multi, seen = run(cfg, True, f"lab path, multi-frame (configs/{LAB_YAML})")
@@ -1344,6 +1402,346 @@ def lab_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N
     return dict(b4_berry=b4, berry_cd=s_berry["CD[mm]"])
 
 
+def kernel_record(name: str, check: dict, launches: int, path: str) -> dict:
+    """One row of the kernels line: a kernel's check on a path's shape and
+    its launches on that path's run."""
+    source, replaces = KERNEL_SOURCES[name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=check["err"], ms=check["ms"], plain_ms=check["plain_ms"],
+                bound_ms=check["bound_ms"], bound_by=check["bound_by"], library_ms=None,
+                path=path)
+
+
+def greenhouse_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_dirs=GH_DIRS,
+                    fruits_per_dir=GH_FRUITS_PER_DIR, size=CHALLENGE_SIZE, n_frames=GH_FRAMES,
+                    reps=GH_REPS, n_gate_dirs=GH_GATE_DIRS, single_dirs=1,
+                    deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32")):
+    """Phase 12, the greenhouse path from disk: `n_dirs` CKA-layout data
+    dirs of `fruits_per_dir` fruits (seeds 9, 10, ...) written by the port's
+    generator; `run_greenhouse_eval` multi-frame under
+    configs/cka_pepper_tpu.yaml on all of them, timed as the median of
+    `reps` after a warm-up with its split, CD, F-score, pose errors, the
+    rescue's lanes and launch counts; B1, B2, B3 and B4 against their plain
+    versions on the run's own observations; the functional gate on the
+    first `n_gate_dirs` dirs; single-frame under
+    configs/cka_pepper_single_tpu.yaml on the first `single_dirs` dirs,
+    timed the same way, with B1 and B2 against their plain versions on its
+    observations. Returns the kernels-line rows of both runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
+    from hortimapping_tpu_torch.data.mesh import TriangleMesh
+    from hortimapping_tpu_torch.metrics.chamfer import ChamferDistance
+    from hortimapping_tpu_torch.metrics.precision_recall import PrecisionRecall
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim import warmstart
+    from hortimapping_tpu_torch.pipeline import greenhouse
+    from hortimapping_tpu_torch.tools import make_demo_data as gen
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", GREENHOUSE_YAML))
+    cfg.update(deepsdf_dir=deepsdf_dir, run_name="chip_smoke_gh")
+    cfg["vis"]["log_on"] = False
+    opt_cfg = JointOptConfig.from_dict(cfg)
+    cfg_1 = load_config(os.path.join(ROOT, "configs", GREENHOUSE_SINGLE_YAML))
+    cfg_1.update(deepsdf_dir=deepsdf_dir, run_name="chip_smoke_gh_single")
+    cfg_1["vis"]["log_on"] = False
+    opt_1 = JointOptConfig.from_dict(cfg_1)
+    assert opt_cfg.fused_bf16 and opt_1.fused_bf16  # B2 runs bf16, as check_render holds it
+    W, H = size
+    quiet = lambda *a: None
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_greenhouse_") as root:
+        dirs = [os.path.join(root, f"cka_{k}") for k in range(n_dirs)]
+        t0 = time.perf_counter()
+        nbytes = sum(gen.make_greenhouse_dataset(d, deepsdf_dir, fruits_per_dir, n_frames, W, H,
+                                                 seed=9 + k, device=dev)
+                     for k, d in enumerate(dirs))
+        render_s = time.perf_counter() - t0
+        cfg["data_dir"] = dirs
+        n_fruits = n_dirs * fruits_per_dir
+        print(f"greenhouse sets: {n_dirs} CKA-layout dirs x {fruits_per_dir} fruits (seeds 9-"
+              f"{8 + n_dirs}), {n_frames} frames {W}x{H} each (frame_per_fruit "
+              f"{cfg['frame_per_fruit']}: every frame sampled) rendered and written in "
+              f"{render_s:.1f} s, {nbytes / 1e6:.1f} MB", flush=True)
+
+        stages = Stages(targets=(
+            ("reading frames and PNGs", greenhouse, "read_frame"),
+            ("background sampling", greenhouse, "background_cloud"),
+            ("cleaning", greenhouse, "clean_mesh"),
+            ("cleaning (clouds)", greenhouse, "clean_pcd"),
+            ("pose init", greenhouse, "get_pose_init"),
+            ("ray sampling", greenhouse, "get_render_data"),
+            ("solve", greenhouse, "warmstart_solve"),
+            ("baseline solve", greenhouse, "shape_opt_deepsdf_batched"),
+            ("meshing", MeshExtractor, "complete_mesh_batch"),
+            ("metrics: mesh sampling", TriangleMesh, "sample_points_uniformly"),
+            ("metrics: Chamfer", ChamferDistance, "update"),
+            ("metrics: P/R", PrecisionRecall, "update"),
+            ("writing", greenhouse, "write_result_dir")))
+
+        def run(cfg_, multi, label):
+            """A warm-up, then `reps` timed runs; returns the last summary,
+            what its solve was given and gave, and the launch counts."""
+            seen = {}
+            greenhouse.run_greenhouse_eval(cfg_, multi, log=quiet, device=dev)
+            times, splits = [], []
+            with capture_solve(greenhouse, seen):
+                for _ in range(reps):
+                    counts = LaunchCounts()
+                    with stages.timing():
+                        t0 = time.perf_counter()
+                        summary = greenhouse.run_greenhouse_eval(cfg_, multi, log=quiet,
+                                                                 device=dev)
+                        torch.cuda.synchronize()
+                        stages.t["batch"] = time.perf_counter() - t0
+                    counts.read()
+                    times.append(stages.t["batch"])
+                    splits.append(stages.split())
+            counts.require(LaunchCounts.ALL, label)
+            n = summary["frames"]
+            ms = float(np.median(times)) * 1e3
+            med = {k: float(np.median([sp[k] for sp in splits])) * 1e3 for k in splits[0]}
+            info = dict(warmstart.LAST_RESCUE_INFO)
+            print(f"{label}: {n} instances | {ms:.1f} ms a run (median of {reps} after a warm-up: "
+                  f"{[round(t * 1e3, 1) for t in times]}), {ms / n:.2f} ms an instance | solve "
+                  f"{summary['timing_s'] * 1e3:.2f} ms an instance (the summary's timing) | mean "
+                  f"iters {summary['iteration']:.2f} | CD {summary['CD[mm]']:.4f} mm, F-score "
+                  f"{summary['F-score[%]']:.2f} % at 5 mm | Error_trans "
+                  f"{summary['Error_trans[mm]']:.3f} mm, Error_rot {summary['Error_rot[deg]']:.3f} "
+                  f"deg | rescue: n_rescued {info.get('n_rescued')}, lanes {info.get('lanes')}, "
+                  f"accepted {info.get('accepted')} | launches {counts} | {smi}", flush=True)
+            print(f"{label} split (median ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in med.items() if k != "baseline solve"), flush=True)
+            assert np.isfinite(summary["CD[mm]"]) and len(summary["cd_per_fruit_mm"]) == n
+            assert np.isfinite(summary["Error_trans[mm]"]) and np.isfinite(summary["Error_rot[deg]"])
+            return summary, seen, counts
+
+        # multi-frame on every dir
+        s_multi, seen, counts = run(cfg, True, f"greenhouse from disk, multi-frame "
+                                               f"(configs/{GREENHOUSE_YAML})")
+        assert s_multi["frames"] == n_fruits, s_multi["frames"]
+        if profile:
+            profile_main(lambda: greenhouse.run_greenhouse_eval(cfg, True, log=quiet, device=dev),
+                         smi, profile, "greenhouse from disk, multi-frame")
+        obs = seen["obs"]
+        print(f"greenhouse multi-frame observations: B={obs.points_w.shape[0]}, "
+              f"{int(obs.frame_valid.sum())} of {obs.frame_valid.numel()} frame slots, "
+              f"{int(obs.point_valid.sum())} of {obs.point_valid.numel()} point slots", flush=True)
+        checks = check_path_kernels("greenhouse from disk, multi-frame", params, spec, table,
+                                    pk16, pk32, opt_cfg, obs, seen["T0"], dev)
+        rows += [kernel_record(k, c, counts.n[k], "greenhouse from disk, multi-frame")
+                 for k, c in checks.items()]
+
+        # functional gate: the first n_gate_dirs dirs, kernels vs plain versions
+        cfg_g = dict(cfg, data_dir=dirs[:n_gate_dirs], run_name="chip_smoke_gh_gate")
+        t0 = time.perf_counter()
+        s_k = greenhouse.run_greenhouse_eval(cfg_g, True, log=quiet, device=dev)
+        t_k = time.perf_counter() - t0
+        with plain_versions():
+            t0 = time.perf_counter()
+            s_p = greenhouse.run_greenhouse_eval(cfg_g, True, log=quiet, device=dev)
+            t_p = time.perf_counter() - t0
+        gap = s_k["CD[mm]"] - s_p["CD[mm]"]
+        print(f"greenhouse functional gate (multi-frame): B={s_k['frames']}, mean CD kernels "
+              f"{s_k['CD[mm]']:.4f} mm vs plain {s_p['CD[mm]']:.4f} mm, gap {gap:+.4f} mm (gate "
+              f"{CD_GATE_MM} mm) | Error_trans kernels {s_k['Error_trans[mm]']:.3f} mm, plain "
+              f"{s_p['Error_trans[mm]']:.3f} mm | Error_rot kernels {s_k['Error_rot[deg]']:.3f} "
+              f"deg, plain {s_p['Error_rot[deg]']:.3f} deg | run kernels {t_k * 1e3:.1f} ms, plain "
+              f"{t_p * 1e3:.1f} ms | mean iters kernels {s_k['iteration']:.2f}, plain "
+              f"{s_p['iteration']:.2f}", flush=True)
+        assert abs(gap) <= CD_GATE_MM, gap
+
+        # single-frame on the first single_dirs dirs: a lane a frame, the
+        # other frame slots of each lane invalid
+        cfg_1["data_dir"] = dirs[:single_dirs]
+        s_single, seen, counts = run(cfg_1, False, f"greenhouse from disk, single-frame, "
+                                                   f"{single_dirs * fruits_per_dir} fruits")
+        obs = seen["obs"]
+        print(f"greenhouse single-frame: {obs.points_w.shape[0]} lanes, "
+              f"{int(obs.frame_valid.sum())} of {obs.frame_valid.numel()} frame slots valid",
+              flush=True)
+        assert s_single["frames"] >= single_dirs * fruits_per_dir
+        checks = check_path_kernels("greenhouse from disk, single-frame", params, spec, table,
+                                    pk16, pk32, opt_1, obs, seen["T0"], dev,
+                                    which=("mlp_fwd_grad", "fused_render"))
+        rows += [kernel_record(k, c, counts.n[k], "greenhouse from disk, single-frame")
+                 for k, c in checks.items()]
+    print(f"greenhouse phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def serve_requests(spec, cfg, seed: int, n: int, latent0, prefix: str):
+    """`n` requests of bench.py's synthetic peppers (the draws of
+    `build_batch` from `seed`, scene k from seed k) at the observation
+    shapes of `cfg`, and their GT surface points."""
+    import numpy as np
+
+    from hortimapping_tpu_torch.serve import CompletionRequest
+    from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory, make_scene
+
+    cat = SyntheticCategory(spec=spec, base_radius=0.06)
+    rng = np.random.default_rng(seed)
+    reqs, gts = [], []
+    for b in range(n):
+        code = (rng.normal(size=spec.code_length) * 0.3).astype(np.float32)
+        T_wo = np.eye(4, dtype=np.float32)
+        T_wo[:3, 3] = rng.normal(size=3) * 0.1
+        obs, gt = make_scene(cat, code, T_wo, n_frames=cfg.n_frame, n_fg=cfg.n_fg_pix,
+                             n_bg=cfg.n_bg_pix, n_points=cfg.recon_n_pts, seed=b)
+        reqs.append(CompletionRequest(f"{prefix}_{b:02d}", obs, latent0,
+                                      np.linalg.inv(T_wo).astype(np.float32)))
+        gts.append(gt)
+    return reqs, gts
+
+
+def serve_path(params, spec, table, smi, dev, profile=None, n_batch=N_FRUITS, n_stream=40,
+               stream_period_s=0.01, voxels=VOXELS):
+    """Phase 13, the serving path: `CompletionServer` over the one-call
+    packed solve (bench config with its unit-scale bf16 retrieval,
+    coarse-to-fine LM, meshing at `voxels`^3) on the card, warmed up
+    first. A burst of 2 x `n_batch` requests served as two full batches,
+    each lane equal to the direct `joint_opt_packed` of its batch at the
+    same width; the served meshes' CD to the GT surfaces; a stream of
+    `n_stream` requests one every `stream_period_s`; admission control and
+    deadlines. Returns the burst's launch counts."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim.lm import joint_opt_packed
+    from hortimapping_tpu_torch.optim.state import stack_observations
+    from hortimapping_tpu_torch.serve import CompletionServer, DeadlineExceeded, ServerOverloaded
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(bench_cfg(), init_mode="retrieval", retrieval_score_pts=128,
+                              retrieval_n_scales=1, retrieval_scale_min=1.0,
+                              retrieval_scale_max=1.0, retrieval_score_bf16=True)
+    lat0 = table.mean(0).cpu().numpy()
+    reqs_a, gts_a = serve_requests(spec, cfg, 42, n_batch, lat0, "bench")
+    reqs_b, gts_b = serve_requests(spec, cfg, 43, n_batch, lat0, "s43")
+    reqs, gts = reqs_a + reqs_b, gts_a + gts_b
+    mesher = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=CUBE_RADIUS, device=dev)
+
+    def server(**kw):
+        srv = CompletionServer(params, spec, cfg, CUBE_RADIUS, max_batch=n_batch,
+                               latent_table=table, mesher=mesher, device=dev, **kw)
+        t0 = time.perf_counter()
+        srv.warmup(reqs[0])
+        return srv, time.perf_counter() - t0
+
+    # 1. burst: two full batches
+    srv, warm_s = server()
+    counts = LaunchCounts()
+    with srv:
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
+        burst_s = time.perf_counter() - t0
+    counts.read()
+    counts.require(LaunchCounts.ALL, "serving burst")
+    assert [r.fruit_id for r in results] == [r.fruit_id for r in reqs]
+    assert all(r.batch_size == n_batch for r in results), [r.batch_size for r in results]
+    gap_lat = gap_T = 0.0
+    for lo in (0, n_batch):
+        batch = reqs[lo:lo + n_batch]
+        res, _ = joint_opt_packed(
+            params, spec, cfg, stack_observations([r.obs for r in batch], dev),
+            torch.as_tensor(np.stack([r.latent0 for r in batch])).to(dev),
+            torch.as_tensor(np.stack([r.T_ow0 for r in batch])).to(dev), CUBE_RADIUS,
+            latent_table=table, device=dev)
+        lat, T_ow = res.latent.cpu().numpy(), res.T_ow.cpu().numpy()
+        for i, r in enumerate(results[lo:lo + n_batch]):
+            assert r.iter_count == int(res.iter_count[i]) and r.failed == bool(res.failed[i])
+            assert r.converged == bool(res.converged[i])
+            gap_lat = max(gap_lat, float(np.abs(r.latent - lat[i]).max()))
+            gap_T = max(gap_T, float(np.abs(r.T_ow - T_ow[i]).max()))
+    assert gap_lat <= 1e-5 and gap_T <= 1e-5, (gap_lat, gap_T)
+    assert not any(r.failed for r in results)
+    assert all(r.mesh is not None and r.mesh.faces.shape[0] > 100 for r in results)
+    cd = mean_cd_mm([r.mesh for r in results], gts, dev)
+    lat_ms = sorted(r.latency_s * 1e3 for r in results)
+    print(f"serving burst: {len(reqs)} requests (the bench batch and {n_batch} from seed 43), "
+          f"configs bench + unit-scale bf16 retrieval, c2f LM, {voxels}^3 meshing | warmup "
+          f"{warm_s:.1f} s (widths 1-{n_batch}) | served in {burst_s * 1e3:.1f} ms as 2 batches "
+          f"of {n_batch} ({len(reqs) / burst_s:.1f} fruits/s), latency p50 "
+          f"{lat_ms[len(lat_ms) // 2]:.1f} max {lat_ms[-1]:.1f} ms | each lane vs the direct "
+          f"joint_opt_packed at width {n_batch}: max |d latent| {gap_lat:.3g}, max |d T_ow| "
+          f"{gap_T:.3g} (gate 1e-5), iterations and flags equal | mean iters "
+          f"{np.mean([r.iter_count for r in results]):.2f} | served meshes mean CD-L1 {cd:.4f} mm "
+          f"| launches {counts} | {smi}", flush=True)
+    if profile:
+        srv_p, _ = server()
+        with srv_p:
+            profile_main(lambda: [f.result(timeout=600) for f in [srv_p.submit(r) for r in reqs]],
+                         smi, profile, "serving burst")
+
+    # 2. stream: one request every stream_period_s
+    srv, _ = server()
+    stream = reqs[:n_stream]
+    futs = []
+    with srv:
+        def producer():
+            for r in stream:
+                futs.append(srv.submit(r))
+                time.sleep(stream_period_s)
+
+        prod = threading.Thread(target=producer)
+        prod.start()
+        prod.join(timeout=600)
+        assert not prod.is_alive()
+        got = [f.result(timeout=600) for f in futs]
+        stats = srv.stats()
+    widths = sorted({srv._batch_width(r.batch_size) for r in got})
+    lat_ms = sorted(r.latency_s * 1e3 for r in got)
+    assert len(got) == n_stream and not any(r.failed for r in got)
+    print(f"serving stream: {n_stream} requests, one every {stream_period_s * 1e3:.0f} ms | "
+          f"batches of {sorted({r.batch_size for r in got})} real lanes at widths {widths} | "
+          f"latency p50 {stats['latency_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{stats['latency_p95_s'] * 1e3:.1f} ms, max {lat_ms[-1]:.1f} ms | "
+          f"{stats['fruits_per_sec']:.2f} fruits/s (stats(), wall since start) | {smi}",
+          flush=True)
+
+    # 3. admission control and deadlines
+    srv = CompletionServer(params, spec, cfg, CUBE_RADIUS, max_batch=n_batch, latent_table=table,
+                           device=dev, max_queue=8)
+    accepted, refused = [], 0
+    with srv:
+        for r in reqs:
+            try:
+                accepted.append(srv.submit(r))
+            except ServerOverloaded:
+                refused += 1
+        done = [f.result(timeout=600) for f in accepted]
+        t0 = time.perf_counter()
+        while srv.stats()["inflight"] and time.perf_counter() - t0 < 10.0:
+            time.sleep(0.001)   # the Futures' callbacks free their places
+        # a deadline of 0 behind a busy batch: expired when packed
+        busy = [srv.submit(r) for r in reqs[:4]]
+        late = srv.submit(dataclasses.replace(reqs[4], deadline_s=0.0))
+        try:
+            late.result(timeout=600)
+            expired = False
+        except DeadlineExceeded:
+            expired = True
+        busy = [f.result(timeout=600) for f in busy]
+        stats = srv.stats()
+    print(f"serving admission control: max_queue 8, a burst of {len(reqs)}: {len(accepted)} "
+          f"accepted and resolved ({sum(not r.failed for r in done)} not failed), {refused} "
+          f"refused with ServerOverloaded | deadline 0 behind a busy batch of 4: "
+          f"{'DeadlineExceeded' if expired else 'SERVED'} (deadline_expired "
+          f"{stats['deadline_expired']}) | serving phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    assert refused > 0 and len(done) == len(accepted) >= 8 and len(busy) == 4
+    assert expired and stats["deadline_expired"] == 1 and stats["inflight"] == 0
+    return counts.n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="stop after the kernel phases")
@@ -1432,20 +1830,11 @@ def main() -> int:
                                  pts_o[:16, :gh_cfg.retrieval_score_pts],
                                  obs.point_valid[:16, :gh_cfg.retrieval_score_pts],
                                  spec.clamping_distance)
-    records["mlp_fwd"] = dict(
-        name="mlp_fwd", route="cuda", source="hortimapping_tpu_torch/csrc/mlp_fwd.cu",
-        replaces="hortimapping_tpu/ops/pallas_mlp.py:169", launches=0,
-        **{k: b3["greenhouse"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        max_abs_err=b3["greenhouse"]["err"], library_ms=None)
+    records["mlp_fwd"] = kernel_record("mlp_fwd", b3["greenhouse"], 0, GH_MEMORY)
 
     # ---------------- 3. B4 vs plain, on the mesher's grid ----------------
     b4 = check_shared_latent("bench and greenhouse", params, spec, pk16, pk32, lat_r, dev)
-    records["mlp_shared_latent"] = dict(
-        name="mlp_shared_latent", route="cuda",
-        source="hortimapping_tpu_torch/csrc/mlp_shared_latent.cu",
-        replaces="hortimapping_tpu/ops/pallas_mlp.py:303", launches=0,
-        **{k: b4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        max_abs_err=b4["err"], library_ms=None)
+    records["mlp_shared_latent"] = kernel_record("mlp_shared_latent", b4, 0, GH_MEMORY)
 
     # ---------------- 4. B1 and B2 vs plain, at the SDF and render shapes ----------------
     b1 = {}
@@ -1466,12 +1855,9 @@ def main() -> int:
           f"TFLOP/s, weights read from L2 at {l2_bytes / ms_16 / 1e9:.2f} TB/s (modelled "
           f"traffic: once forward, once backward per cluster of {mlp_kernels.CLUSTER} 64-row "
           f"blocks)", flush=True)
-    gh = b1["greenhouse"]
-    records["mlp_fwd_grad"] = dict(
-        name="mlp_fwd_grad", route="cuda", source="hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
-        replaces="hortimapping_tpu/ops/pallas_mlp.py:198", launches=0,
-        max_abs_err=max(r["err"] for r in b1.values()), ms=gh["ms"], plain_ms=gh["plain_ms"],
-        bound_ms=gh["bound_ms"], bound_by=gh["bound_by"], library_ms=None)
+    records["mlp_fwd_grad"] = kernel_record(
+        "mlp_fwd_grad", dict(b1["greenhouse"], err=max(r["err"] for r in b1.values())), 0,
+        GH_MEMORY)
 
     b2 = {"bench coarse": check_render("bench coarse", pk16, pk32,
                                        *subsample_observations(obs, cfg), lat_r, T_r, dev)}
@@ -1479,12 +1865,9 @@ def main() -> int:
         obs, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac, cfg.fine_sample_frac,
         cfg.fine_pts_frac), lat_r, T_r, dev)
     b2["greenhouse"] = check_render("greenhouse", pk16, pk32, obs, gh_cfg, lat_g, T_g, dev)
-    gh = b2["greenhouse"]
-    records["fused_render"] = dict(
-        name="fused_render", route="cuda", source="hortimapping_tpu_torch/csrc/fused_render.cu",
-        replaces="hortimapping_tpu/ops/pallas_render.py:100", launches=0,
-        max_abs_err=max(r["err"] for r in b2.values()), ms=gh["ms"], plain_ms=gh["plain_ms"],
-        bound_ms=gh["bound_ms"], bound_by=gh["bound_by"], library_ms=None)
+    records["fused_render"] = kernel_record(
+        "fused_render", dict(b2["greenhouse"], err=max(r["err"] for r in b2.values())), 0,
+        GH_MEMORY)
     if args.quick:
         print(json.dumps({"kernels": list(records.values())}))
         return 0
@@ -1687,7 +2070,18 @@ def main() -> int:
     # ---------------- 11. lab path ----------------
     lab_path(params, spec, table, pk16, pk32, smi, dev, profile=args.profile)
 
-    print(json.dumps({"kernels": list(records.values())}))
+    # ---------------- 12. greenhouse path from disk ----------------
+    rows = greenhouse_path(params, spec, table, pk16, pk32, smi, dev, profile=args.profile)
+
+    # ---------------- 13. serving path ----------------
+    served = serve_path(params, spec, table, smi, dev, profile=args.profile)
+    # the served batches run the bench shapes, held in phases 2-4
+    rows += [kernel_record(k, c, served[k], "served batches (bench shapes)")
+             for k, c in (("mlp_fwd_grad", b1["bench fine"]), ("fused_render", b2["bench fine"]),
+                          ("mlp_fwd", b3["bench"]), ("mlp_shared_latent", b4))]
+
+    # ---------------- 14. the JSON lines ----------------
+    print(json.dumps({"kernels": list(records.values()) + rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

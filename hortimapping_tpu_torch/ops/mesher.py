@@ -10,7 +10,9 @@ The grid decode has two routes, as the JAX package's `use_pallas`:
   f32 decoder forward, as the JAX package's default XLA route.
 Both decode `decode_chunk` fruits at a time (a 6 GiB activation budget of
 the plain route) and ship the grid to the host as f16: iso-surfacing needs
-only the zero crossing.
+only the zero crossing. For serving, `pack_solve_with_grids` puts a batch's
+packed solve result and its f16 grids into one device buffer, so both cross
+to the host in one copy.
 """
 
 from __future__ import annotations
@@ -93,10 +95,42 @@ class MeshExtractor:
     def extract_mesh_from_code(self, latent: torch.Tensor) -> TriangleMesh:
         return self._grid_to_mesh(self.decode_sdf_grid(latent))
 
-    def meshes_from_grids(self, grids: torch.Tensor) -> List[TriangleMesh]:
-        """Host iso-surfacing of grids from `decode_grids`."""
+    def decode_grids_async(self, latents: torch.Tensor) -> torch.Tensor:
+        """`decode_grids`, named as the serving path calls it: on the card
+        the decode is only queued, and nothing waits for it until its grids
+        are read."""
+        return self.decode_grids(latents)
+
+    def pack_solve_with_grids(self, res) -> torch.Tensor:
+        """[B, 2 * (C + 19) + D^3] int16 device buffer: the bits of the
+        solver's packed result (`optim/lm.pack_result`, f32, bit exact) and
+        then of the f16 SDF grids of its codes, so that a served batch's
+        solve and meshing results cross to the host in one copy. Read it
+        back with `unpack_solve_with_grids`."""
+        from hortimapping_tpu_torch.optim.lm import pack_result
+
+        head = pack_result(res).contiguous().view(torch.int16)
+        grids = self.decode_grids_async(res.latent).view(torch.int16)
+        return torch.cat([head, grids], dim=1)
+
+    def unpack_solve_with_grids(self, host_u16: np.ndarray):
+        """Inverse of `pack_solve_with_grids` on the buffer copied to the
+        host (int16 or uint16: the same bits): (packed f32 [B, C + 19] as
+        `pack_result` lays it out, f16 grids [B, D, D, D] for
+        `meshes_from_grids`)."""
+        n_head = 2 * (self.spec.code_length + 19)
         d = self.voxels_dim
-        host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
+        head = np.ascontiguousarray(host_u16[:, :n_head]).view(np.float32)
+        grids = np.ascontiguousarray(host_u16[:, n_head:]).view(np.float16)
+        return head, grids.reshape(-1, d, d, d)
+
+    def meshes_from_grids(self, grids) -> List[TriangleMesh]:
+        """Host iso-surfacing of grids from `decode_grids` (a tensor) or
+        `unpack_solve_with_grids` (host numpy)."""
+        d = self.voxels_dim
+        if isinstance(grids, torch.Tensor):
+            grids = grids.detach().cpu().numpy()
+        host = grids.reshape(-1, d, d, d)
         # threads pay only from 64^3 up: the native call releases the GIL,
         # but at smaller grids the per-fruit numpy work around it dominates
         if host.shape[0] > 4 and d >= 64:

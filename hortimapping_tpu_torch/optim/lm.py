@@ -2,8 +2,10 @@
 
 Counterpart of `hortimapping_tpu/optim/lm.py`: the fixed-lambda solver, the
 adaptive trust-region solver (`trust_region`), the two-resolution schedule,
-the code-frozen pose polish, the staged solve, the chunked solve and the
-code-only DeepSDF baseline (`shape_opt_deepsdf(_batched)`). The JAX
+the code-frozen pose polish, the staged solve, the chunked solve, the
+code-only DeepSDF baseline (`shape_opt_deepsdf(_batched)`), the single-fruit
+solvers (`shape_pose_joint_opt(_traced)`) and the serving solve
+(`joint_opt_packed`). The JAX
 `vmap` over fruits is the leading [B] axis of every tensor; its
 `lax.while_loop` with frozen lanes is a Python loop that steps every lane
 until all are done or failed (one host sync per iteration, for that test).
@@ -772,3 +774,100 @@ def pack_result(res: OptResult) -> torch.Tensor:
         ],
         dim=1,
     )
+
+
+def _one_lane(obs: FruitObservations, latent0, T_ow0):
+    """A single fruit's observations, latent and pose (numpy or tensors) as
+    a batch of one, floating fields in f32 as the JAX package takes them."""
+    def lane(a):
+        t = torch.as_tensor(a)
+        return (t.float() if t.is_floating_point() else t)[None]
+
+    return FruitObservations(*(lane(a) for a in obs)), lane(latent0), lane(T_ow0)
+
+
+def shape_pose_joint_opt(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,   # one fruit: no leading axis
+    latent0,                  # [C]
+    T_ow0,                    # [4, 4]
+    cube_radius: float,
+    pose_known: bool = False,
+    device: str | torch.device = "cuda",
+) -> OptResult:
+    """One fruit: the batched solver on a batch of one, its fields without
+    the leading axis. In a wider batch a lane's arithmetic is the same up
+    to the summation order of PyTorch's batched reductions (ulps, which a
+    lane on a render-band edge can carry further)."""
+    dev = resolve_device(device)
+    res = shape_pose_joint_opt_batched(params, spec, cfg, *_one_lane(obs, latent0, T_ow0),
+                                       cube_radius, pose_known, dev)
+    return OptResult(*(a[0] for a in res))
+
+
+def shape_pose_joint_opt_traced(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,   # one fruit: no leading axis
+    latent0,                  # [C]
+    T_ow0,                    # [4, 4]
+    cube_radius: float,
+    pose_known: bool = False,
+    device: str | torch.device = "cuda",
+) -> Tuple[OptResult, Tuple[torch.Tensor, torch.Tensor]]:
+    """`shape_pose_joint_opt` (fixed lambda) that also returns the state
+    after each of exactly `cfg.max_iter` iterations: (latents [max_iter, C],
+    poses [max_iter, 4, 4]). Once the lane is done or failed, its entries
+    repeat the frozen state, as the JAX package's fixed-length scan does.
+    The loop never reads a value back to the host; the trajectory stays on
+    the device, one stacked tensor per field for the caller to copy once."""
+    dev = resolve_device(device)
+    _, obs_b, lat_b, T_b = _prepare(dev, cfg, *_one_lane(obs, latent0, T_ow0))
+    packs = make_packs(params, spec, cfg)
+    s = init_state(lat_b, T_b)
+    latents, poses = [], []
+    for _ in range(cfg.max_iter):
+        s = _freeze_if_done(s, lm_iteration(params, spec, cfg, obs_b, s, cube_radius, pose_known,
+                                             packs))
+        latents.append(s.latent[0])
+        poses.append(s.T_ow[0])
+    res = OptResult(s.latent[0], s.T_ow[0], s.iter_count[0], s.failed[0], s.converged[0])
+    return res, (torch.stack(latents), torch.stack(poses))
+
+
+def joint_opt_packed(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,   # leading fruit axis
+    latent0: torch.Tensor,    # [B, C]
+    T_ow0: torch.Tensor,      # [B, 4, 4]
+    cube_radius: float,
+    pose_known: bool = False,
+    latent_table: Optional[torch.Tensor] = None,
+    device: str | torch.device = "cuda",
+    packs: Optional[Packs] = None,
+) -> Tuple[OptResult, torch.Tensor]:
+    """The serving solve, returning (result, `pack_result(result)`): the
+    retrieval warm start where `cfg.init_mode` is "retrieval" and a
+    `latent_table` is given, then the configured solver (coarse-to-fine or
+    single phase), then the configured pose polish. The packed result is
+    one device buffer, so a batch's solve crosses to the host in one copy.
+    `packs` lets a caller that solves many batches pack the weights once
+    (with the scoring decoder where it retrieves)."""
+    dev, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
+    retrieve = cfg.init_mode == "retrieval" and latent_table is not None
+    if packs is None:
+        packs = make_packs(params, spec, cfg, score=retrieve)
+    if retrieve:
+        from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+
+        latent0, T_ow0 = maybe_retrieval_init(params, spec, cfg, latent_table, obs, latent0,
+                                              T_ow0, dev, packs)
+    solver = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
+    res = solver(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, dev, packs)
+    res = maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known, dev, packs)
+    return res, pack_result(res)

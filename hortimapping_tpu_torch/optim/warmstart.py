@@ -168,14 +168,16 @@ def maybe_retrieval_init(
     latent0: torch.Tensor,        # [B, C] fallback (table-mean) init
     T_ow0: torch.Tensor,          # [B, 4, 4] pose init
     device: str | torch.device = "cuda",
+    packs: Optional[lm.Packs] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """With `init_mode: retrieval` the retrieved (code, scale) start per
-    fruit; otherwise the inputs unchanged."""
+    fruit; otherwise the inputs unchanged. `packs.score`, where given, is
+    the scoring decoder."""
     _, obs, latent0, T_ow0, latent_table = lm._prepare(device, opt_cfg, obs, latent0, T_ow0,
                                                          latent_table)
     if opt_cfg.init_mode != "retrieval":
         return latent0, T_ow0
-    lat, T, _, _ = _retrieve(params, spec, opt_cfg, latent_table, obs, T_ow0)
+    lat, T, _, _ = _retrieve(params, spec, opt_cfg, latent_table, obs, T_ow0, packs=packs)
     return lat, T
 
 

@@ -1,8 +1,10 @@
-"""Generate synthetic datasets for the pipelines (counterpart of the wild,
-challenge and lab parts of `hortimapping_tpu/tools/make_demo_data.py`):
+"""Generate synthetic datasets for the pipelines (counterpart of
+`hortimapping_tpu/tools/make_demo_data.py`):
 the BUP20-style scene below; `make_challenge_dataset` (ECCV challenge
-layout, `pipeline/challenge.py`) and `make_lab_dataset` (IGG lab layout,
-`pipeline/lab.py`), whose layouts their docstrings give, as functions only.
+layout, `pipeline/challenge.py`), `make_lab_dataset` (IGG lab layout,
+`pipeline/lab.py`) and `make_greenhouse_dataset` (CKA greenhouse layout,
+`pipeline/greenhouse.py`), whose layouts their docstrings give (`main`
+writes the greenhouse one with `--layout greenhouse`).
 
 N fruits of the synthetic ellipsoid world (`tools/synthetic.py`) with known
 codes and poses stand in front of a background wall and are observed by a
@@ -19,11 +21,13 @@ reads):
     <out>/gt_poses.npz, gt_codes.npz     ground truth for evaluation
 
 Frames are ray-marched in float64 on a torch device, all fruits at once
-(and, for the challenge and lab layouts, all frames of a fruit at once);
-`write_scene` writes any layout of fruits and camera poses, `main` the JAX
-package's: the same arguments, draws and files.
+(and, for the challenge, lab and greenhouse layouts, all frames of a fruit
+or scene at once); `write_scene` writes any layout of fruits and camera
+poses, `main` by default the JAX package's scene: the same arguments, draws
+and files.
 
 Run:  python -m hortimapping_tpu_torch.tools.make_demo_data --out data/synthetic_bup
+      [--layout greenhouse --n_fruits 4 --n_frames 20 --width 640 --height 480]
 """
 
 from __future__ import annotations
@@ -436,6 +440,104 @@ def make_lab_dataset(out: str, deepsdf_dir: str, n_fruits: int = 2, n_frames: in
     return _tree_bytes(out)
 
 
+def make_greenhouse_dataset(out: str, deepsdf_dir: str, n_fruits: int = 2, n_frames: int = 6,
+                            W: int = 160, H: int = 120, seed: int = 9,
+                            device: str | torch.device = "cuda") -> int:
+    """CKA-greenhouse layout dataset (`pipeline/greenhouse.py`):
+        before/realsense/{color,depth,submap_ids}/<frame>.{png,npy,_submap_id.png}
+        before/realsense/intrinsic.json   (column-major K, depth_scale, height, width)
+        before/rostf_poses_no_jump.npz, rostf_poses_metashape_aligned.npz
+        before/metashape/scaled_poses.npz
+        before/submaps/00001_Background.ply, 000NN_Sweetpepper.ply
+        fruits_measured/{info,info_usable}.json
+        fruits_measured/<fruit>/tf/{tf_allposes,tf,bounding_box}.npz
+        fruits_measured/<fruit>/laser/fruit_clean.ply
+
+    One world frame w: fruit k sits at T_wg_k on a row along x, cameras
+    sweep in w (the aligned poses are T_wc), and the metashape frame m is
+    chosen so that T_wm = I (ros_tfs[0] = T_BC, metashape_poses[0] = I):
+    multi-frame reads T_mg = T_wg. tfs_cam[i] = inv(T_wg) @ T_wc_i, so the
+    single-frame evaluation's T_wg = inv(T_CW_SINGLE) @ inv(tfs_cam[i]) matches
+    its back-projection of the frame through the fixed extrinsic. Fruit k
+    is submap id k + 2. Draws from `default_rng(seed)` in the JAX
+    generator's order: per fruit a code and a y offset, then per fruit its
+    GT directions. Returns the bytes written."""
+    from hortimapping_tpu_torch.pipeline.greenhouse import T_BC
+
+    device = resolve_device(device)
+    cat, _ = category(deepsdf_dir)
+    proj = cat.projection()
+    rng = np.random.default_rng(seed)
+    depth_scale = 1000.0
+    K = intrinsics(W, H)
+    wall_z = 0.8
+
+    base = os.path.join(out, "before")
+    rgbd = os.path.join(base, "realsense")
+    for sub in ["color", "depth", "submap_ids"]:
+        os.makedirs(os.path.join(rgbd, sub), exist_ok=True)
+    os.makedirs(os.path.join(base, "metashape"), exist_ok=True)
+    submap_dir = os.path.join(base, "submaps")
+    os.makedirs(submap_dir, exist_ok=True)
+    gt_base = os.path.join(out, "fruits_measured")
+    with open(os.path.join(rgbd, "intrinsic.json"), "w") as f:
+        json.dump({"intrinsic_matrix": K.flatten(order="F").tolist(),
+                   "height": H, "width": W, "depth_scale": depth_scale}, f)
+
+    T_wgs, radii = [], []
+    for k in range(n_fruits):
+        code = (rng.normal(size=cat.spec.code_length) * 0.4).astype(np.float32)
+        radii.append(cat.base_radius * np.exp(proj @ code))
+        T_wg = np.eye(4)
+        T_wg[:3, 3] = [0.15 * (k - (n_fruits - 1) / 2), rng.uniform(-0.03, 0.03), 0.6]
+        T_wgs.append(T_wg)
+
+    cam_tfs = []
+    for fi in range(n_frames):
+        t = fi / max(n_frames - 1, 1)
+        cam_pos = np.array([-0.2 + 0.4 * t, 0.02 * np.sin(6 * t), 0.1])
+        cam_tfs.append(look_at(cam_pos, np.array([cam_pos[0] * 0.5, 0.0, 0.6])))
+    fruits = [(np.linalg.inv(T_wg), r) for T_wg, r in zip(T_wgs, radii)]
+    for fi, (depth, inst, rgb) in enumerate(render_frames(cam_tfs, K, W, H, fruits, wall_z,
+                                                          device)):
+        name = f"{fi:05d}"
+        imageio.imwrite(os.path.join(rgbd, "color", name + ".png"), rgb[..., ::-1])
+        np.save(os.path.join(rgbd, "depth", name + ".npy"),
+                (depth * depth_scale).astype(np.float32))
+        # the wall (1) is no submap: id 0 there
+        imageio.imwrite(os.path.join(rgbd, "submap_ids", name + "_submap_id.png"),
+                        np.where(inst >= 2, inst, 0).astype(np.uint8))
+
+    cam_tfs = np.stack(cam_tfs)
+    np.savez(os.path.join(base, "rostf_poses_metashape_aligned.npz"), cam_tfs)
+    np.savez(os.path.join(base, "rostf_poses_no_jump.npz"), np.tile(T_BC[None], (n_frames, 1, 1)))
+    np.savez(os.path.join(base, "metashape", "scaled_poses.npz"),
+             np.tile(np.eye(4)[None], (n_frames, 1, 1)))
+
+    write_mesh(os.path.join(submap_dir, "00001_Background.ply"), wall_mesh(wall_z, half=0.8))
+    info = {}
+    for k, (T_wg, r) in enumerate(zip(T_wgs, radii)):
+        sid = k + 2
+        write_mesh(os.path.join(submap_dir, f"{sid:05d}_Sweetpepper.ply"),
+                   partial_fruit_mesh(T_wg, r, keep_dir_w=np.array([0.0, 0.0, -1.0])))
+        fid = f"fruit_{k:02d}"
+        fdir = os.path.join(gt_base, fid)
+        os.makedirs(os.path.join(fdir, "tf"), exist_ok=True)
+        os.makedirs(os.path.join(fdir, "laser"), exist_ok=True)
+        info[fid] = {"submap_id": sid, "begin_frame": 0, "end_frame": n_frames}
+        np.savez(os.path.join(fdir, "tf", "tf_allposes.npz"),
+                 np.stack([np.linalg.inv(T_wg) @ cam_tfs[i] for i in range(n_frames)]))
+        np.savez(os.path.join(fdir, "tf", "tf.npz"), T_wg)
+        b = float(np.max(r)) * 1.4
+        np.savez(os.path.join(fdir, "tf", "bounding_box.npz"), np.array([[-b, -b, -b], [b, b, b]]))
+        write_point_cloud(os.path.join(fdir, "laser", "fruit_clean.ply"),
+                          PointCloud((_unit_dirs(rng, 3000) * r).astype(np.float32)))
+    for fn in ("info.json", "info_usable.json"):
+        with open(os.path.join(gt_base, fn), "w") as f:
+            json.dump(info, f)
+    return _tree_bytes(out)
+
+
 def _tree_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(root) for fn in fns)
 
@@ -457,14 +559,22 @@ def main(argv=None):
     ap.add_argument("--n_frames", type=int, default=12)
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=192)
-    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="default 7 (bup), 9 (greenhouse)")
+    ap.add_argument("--layout", choices=("bup", "greenhouse"), default="bup",
+                    help="bup: the wild pipeline's scene (default); greenhouse: one CKA data dir")
     ap.add_argument("--device", default="cuda", help="device of the ray march (cuda or cpu)")
     args = ap.parse_args(argv)
 
-    cat, base_radius = category(args.deepsdf_dir)
-    rng = np.random.default_rng(args.seed)
-    T_wos, codes = draw_fruits(rng, args.n_fruits, cat.spec.code_length)
     W, H = args.width, args.height
+    if args.layout == "greenhouse":
+        make_greenhouse_dataset(args.out, args.deepsdf_dir, args.n_fruits, args.n_frames, W, H,
+                                seed=9 if args.seed is None else args.seed, device=args.device)
+        print(f"wrote synthetic greenhouse dataset to {args.out}")
+        return
+    cat, base_radius = category(args.deepsdf_dir)
+    rng = np.random.default_rng(7 if args.seed is None else args.seed)
+    T_wos, codes = draw_fruits(rng, args.n_fruits, cat.spec.code_length)
     write_scene(args.out, T_wos, codes, cat.projection(), base_radius,
                 sweep_poses(args.n_frames), intrinsics(W, H), W, H, device=args.device)
     print(f"wrote synthetic BUP-style dataset to {args.out}")

@@ -382,3 +382,63 @@ def test_render_frame_card_matches_cpu(cuda):
     assert (i_card == i_cpu).mean() >= 0.999
     same = (i_card == i_cpu) & (i_cpu > 0)
     assert np.abs(d_card[same] - d_cpu[same]).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_served_batch_equals_packed_solve(cuda):
+    """A served batch of 8 on the card (the bench config: retrieval warm
+    start, coarse-to-fine LM; meshing on) equals `joint_opt_packed` of the
+    same 8 requests at width 8: B1 and B2 are bit-equal across launches, so
+    latent and pose agree within 1e-5, iteration counts and flags exactly;
+    every result carries its mesh, and all four kernels launched on the
+    server's worker thread."""
+    from hortimapping_tpu_torch.config import JointOptConfig
+    from hortimapping_tpu_torch.models.workspace import load_latent_vectors
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.optim.state import stack_observations
+    from hortimapping_tpu_torch.serve import CompletionRequest, CompletionServer
+    from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory, make_scene
+
+    params, spec = _decoder("synthetic_pepper_32", 0, cuda)
+    table = load_latent_vectors(f"{ASSETS}/synthetic_pepper_32", device=cuda)
+    cfg = JointOptConfig(scale_on=True, n_fg_pix=200, n_bg_pix=200, n_frame=10,
+                         n_sample_on_ray=30, recon_n_pts=2000, max_iter=50, coarse_to_fine=True,
+                         fine_max_iter=2, coarse_frame_stride=4, coarse_ray_frac=0.3,
+                         coarse_sample_frac=0.35, coarse_pts_frac=0.3, coarse_max_iter=8,
+                         fine_ray_frac=0.6, fine_sample_frac=0.75, fine_pts_frac=0.6,
+                         init_mode="retrieval", retrieval_score_pts=128, retrieval_n_scales=1,
+                         retrieval_scale_min=1.0, retrieval_scale_max=1.0,
+                         retrieval_score_bf16=True)
+    cat = SyntheticCategory(spec=spec, base_radius=0.06)
+    rng = np.random.default_rng(43)
+    reqs = []
+    for b in range(8):
+        code = (rng.normal(size=spec.code_length) * 0.3).astype(np.float32)
+        T_wo = np.eye(4, dtype=np.float32)
+        T_wo[:3, 3] = rng.normal(size=3) * 0.1
+        obs, _ = make_scene(cat, code, T_wo, n_frames=cfg.n_frame, n_fg=cfg.n_fg_pix,
+                            n_bg=cfg.n_bg_pix, n_points=cfg.recon_n_pts, seed=b)
+        reqs.append(CompletionRequest(f"fruit_{b}", obs, table.mean(0).cpu().numpy(),
+                                      np.linalg.inv(T_wo).astype(np.float32)))
+    mesher = MeshExtractor(params, spec, voxels_dim=40, cube_radius=0.08, device=cuda)
+    res, _ = lm.joint_opt_packed(
+        params, spec, cfg, stack_observations([r.obs for r in reqs], cuda),
+        torch.as_tensor(np.stack([r.latent0 for r in reqs])).to(cuda),
+        torch.as_tensor(np.stack([r.T_ow0 for r in reqs])).to(cuda), 0.08,
+        latent_table=table, device=cuda)
+    srv = CompletionServer(params, spec, cfg, 0.08, max_batch=8, max_wait_s=1.0,
+                           latent_table=table, mesher=mesher, device=cuda)
+    srv.warmup(reqs[0])
+    counts = (mlp_kernels.launches, render_kernel.launches, mlp_kernels.launches_fwd,
+              mlp_kernels.launches_shared_latent)
+    with srv:
+        got = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
+    after = (mlp_kernels.launches, render_kernel.launches, mlp_kernels.launches_fwd,
+             mlp_kernels.launches_shared_latent)
+    assert all(a > c for a, c in zip(after, counts)), (counts, after)
+    for i, g in enumerate(got):
+        assert g.batch_size == 8 and g.mesh is not None and g.mesh.faces.shape[0] > 100
+        assert g.iter_count == int(res.iter_count[i]) and g.failed == bool(res.failed[i])
+        np.testing.assert_allclose(g.latent, res.latent[i].cpu().numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(g.T_ow, res.T_ow[i].cpu().numpy(), atol=1e-5, rtol=0)

@@ -65,6 +65,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import hortimapping_tpu_torch.pipeline.challenge, hortimapping_tpu_torch.pipeline.lab\n"
         "import hortimapping_tpu_torch.data.rgbd, hortimapping_tpu_torch.data.challenge\n"
         "import hortimapping_tpu_torch.metrics.precision_recall\n"
+        "import hortimapping_tpu_torch.pipeline.greenhouse, hortimapping_tpu_torch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click', 'wandb')]\n"
         "print(bad)\n"
@@ -143,7 +144,27 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
             lab.run_lab_eval({}, multi)
     with pytest.raises(RuntimeError, match="CUDA"):
         lab.main(["-c", os.path.join(ROOT, "configs", "lab_pepper_tpu.yaml"), "--multi_frame"])
-    for gen in (make_demo_data.make_challenge_dataset, make_demo_data.make_lab_dataset):
+    from hortimapping_tpu_torch.config import JointOptConfig
+    from hortimapping_tpu_torch.optim.lm import (
+        joint_opt_packed,
+        shape_pose_joint_opt,
+        shape_pose_joint_opt_traced,
+    )
+    from hortimapping_tpu_torch.pipeline import greenhouse
+    from hortimapping_tpu_torch.serve import CompletionServer
+
+    for fn in (shape_pose_joint_opt, shape_pose_joint_opt_traced, joint_opt_packed):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(params, spec, JointOptConfig(), [], np.zeros(8), np.eye(4), 0.08)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CompletionServer(params, spec, JointOptConfig(), 0.08)
+    for multi in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            greenhouse.run_greenhouse_eval({}, multi)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        greenhouse.main(["-c", os.path.join(ROOT, "configs", "cka_pepper_tpu.yaml"), "--multi"])
+    for gen in (make_demo_data.make_challenge_dataset, make_demo_data.make_lab_dataset,
+                make_demo_data.make_greenhouse_dataset):
         with pytest.raises(RuntimeError, match="CUDA"):
             gen(str(tmp_path / gen.__name__), assets, n_fruits=1, n_frames=1)
         assert not os.path.exists(tmp_path / gen.__name__)   # refused before writing
