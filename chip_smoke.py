@@ -82,9 +82,9 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      functional gate on the first 2 dirs (8 fruits, mean CD within 0.3 mm,
      pose errors beside); single-frame under
      configs/cka_pepper_single_tpu.yaml on the first dir (a lane a sampled
-     frame), timed the same way, B1 and B2 vs their plain versions on its
-     observations (each run's median of 2, cut from 3 for the script's
-     time);
+     frame), timed the same way, B1, B2, B3 and B4 vs their plain versions
+     on its observations (B4 in the mesher's launches of `decode_chunk`
+     codes), each run's median of 2, cut from 3 for the script's time;
  13. the serving path: `CompletionServer` (bench config with unit-scale
      bf16 retrieval, coarse-to-fine LM, 40^3 meshing, max_batch 32) warmed
      up, then a burst of 64 requests served as two batches of 32, each lane
@@ -549,7 +549,8 @@ def surface_distances(pk32, meshes, latents):
 def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=True,
                         voxels=VOXELS, cube_radius=CUBE_RADIUS):
     """B4 vs its plain version on the mesher's grid (voxels^3 points under
-    each of `latents`): f32 held to max |d sdf| <= 1e-5, bf16 to the median
+    each of `latents`), launched on the mesher's `decode_chunk` codes at a
+    time as the mesher launches it: f32 held to max |d sdf| <= 1e-5, bf16 to the median
     and p99 of |d sdf| (B4_BF16_GATE; a sign flip near zero moves a vertex by
     a fraction of a voxel, so never to a per-point maximum). With `surface`,
     the mesher's grid of each mode and the plain version's grid are meshed
@@ -578,8 +579,12 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
         mesher = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=cube_radius,
                                bf16=pk.bf16, device=dev)
         pts = mesher.voxel_points
-        got = mlp_kernels.mlp_sdf_shared_latent(pk, latents, pts)
-        want = mlp_kernels.mlp_sdf_shared_latent_plain(pk, latents, pts)
+        chunks = [latents[lo:lo + mesher.decode_chunk]
+                  for lo in range(0, B, mesher.decode_chunk)]
+        kernel = lambda: torch.cat([mlp_kernels.mlp_sdf_shared_latent(pk, c, pts) for c in chunks])
+        plain = lambda: torch.cat([mlp_kernels.mlp_sdf_shared_latent_plain(pk, c, pts)
+                                   for c in chunks])
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all())
         d = (got - want).abs()
@@ -598,18 +603,22 @@ def check_shared_latent(phase, params, spec, pk16, pk32, latents, dev, surface=T
             surf_s = (f" | surface: vertex distance p95 {surf[mode][0]:.4f} p99.9 "
                       f"{surf[mode][1]:.4f} voxel over {surf[mode][2]} vertices (plain {mode} "
                       f"grid: p95 {p95_p:.4f} p99.9 {p999_p:.4f})")
-        ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_shared_latent(pk, latents, pts), 5)
-        plain_ms = cuda_ms(lambda: mlp_kernels.mlp_sdf_shared_latent_plain(pk, latents, pts), 2)
+        ms = cuda_ms(kernel, 5)
+        plain_ms = cuda_ms(plain, 2)
         rows = B * pts.shape[0]
+        n0 = chunks[0].shape[0]
+        first_launch = wave_schedule("mlp_shared_latent", pk, n0 * -(-pts.shape[0] // 64),
+                                     ms * n0 / B)
         flops, bound_ms, bound_by = fwd_bound(pk, rows, pts.numel() * 4 + latents.numel() * 4,
                                               rows * 4)
         out[mode] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(f"B4 mlp_shared_latent vs plain, {phase} grid, {mode}: {B} codes x {voxels}^3 points "
-              f"= {rows} rows | |d sdf| median {med:.3g} p99 {p99:.3g} max {err:.3g} {gate_s}"
+              f"= {rows} rows, in launches of {[c.shape[0] for c in chunks]} codes | |d sdf| "
+              f"median {med:.3g} p99 {p99:.3g} max {err:.3g} {gate_s}"
               f"{surf_s} | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
               f"{'bf16 tensor' if pk.bf16 else 'f32 CUDA-core'} peak) | no single PyTorch call | "
-              f"{wave_schedule('mlp_shared_latent', pk, B * -(-pts.shape[0] // 64), ms)}",
+              f"first launch (its time pro rata by codes): {first_launch}",
               flush=True)
     if surface:
         p95, p999, _ = surf[mesher_mode]
@@ -1425,8 +1434,9 @@ def greenhouse_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_d
     versions on the run's own observations; the functional gate on the
     first `n_gate_dirs` dirs; single-frame under
     configs/cka_pepper_single_tpu.yaml on the first `single_dirs` dirs,
-    timed the same way, with B1 and B2 against their plain versions on its
-    observations. Returns the kernels-line rows of both runs."""
+    timed the same way, with B1, B2, B3 and B4 against their plain
+    versions on its observations. Returns the kernels-line rows of both
+    runs."""
     import tempfile
 
     import numpy as np
@@ -1566,8 +1576,7 @@ def greenhouse_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_d
               flush=True)
         assert s_single["frames"] >= single_dirs * fruits_per_dir
         checks = check_path_kernels("greenhouse from disk, single-frame", params, spec, table,
-                                    pk16, pk32, opt_1, obs, seen["T0"], dev,
-                                    which=("mlp_fwd_grad", "fused_render"))
+                                    pk16, pk32, opt_1, obs, seen["T0"], dev)
         rows += [kernel_record(k, c, counts.n[k], "greenhouse from disk, single-frame")
                  for k, c in checks.items()]
     print(f"greenhouse phase {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1669,8 +1678,9 @@ def serve_path(params, spec, table, smi, dev, profile=None, n_batch=N_FRUITS, n_
     print(f"serving burst: {len(reqs)} requests (the bench batch and {n_batch} from seed 43), "
           f"configs bench + unit-scale bf16 retrieval, c2f LM, {voxels}^3 meshing | warmup "
           f"{warm_s:.1f} s (widths 1-{n_batch}) | served in {burst_s * 1e3:.1f} ms as 2 batches "
-          f"of {n_batch} ({len(reqs) / burst_s:.1f} fruits/s), latency p50 "
-          f"{lat_ms[len(lat_ms) // 2]:.1f} max {lat_ms[-1]:.1f} ms | each lane vs the direct "
+          f"of {n_batch} ({len(reqs) / burst_s:.1f} fruits/s), latency first batch "
+          f"{lat_ms[0]:.1f}-{lat_ms[n_batch - 1]:.1f} ms, second {lat_ms[n_batch]:.1f}-"
+          f"{lat_ms[-1]:.1f} ms | each lane vs the direct "
           f"joint_opt_packed at width {n_batch}: max |d latent| {gap_lat:.3g}, max |d T_ow| "
           f"{gap_T:.3g} (gate 1e-5), iterations and flags equal | mean iters "
           f"{np.mean([r.iter_count for r in results]):.2f} | served meshes mean CD-L1 {cd:.4f} mm "

@@ -96,9 +96,9 @@ class MeshExtractor:
         return self._grid_to_mesh(self.decode_sdf_grid(latent))
 
     def decode_grids_async(self, latents: torch.Tensor) -> torch.Tensor:
-        """`decode_grids`, named as the serving path calls it: on the card
-        the decode is only queued, and nothing waits for it until its grids
-        are read."""
+        """`decode_grids` under the JAX package's name for the serving path,
+        kept only for that name: on the card every decode is only queued,
+        and nothing waits for it until its grids are read."""
         return self.decode_grids(latents)
 
     def pack_solve_with_grids(self, res) -> torch.Tensor:
@@ -116,21 +116,17 @@ class MeshExtractor:
     def unpack_solve_with_grids(self, host_u16: np.ndarray):
         """Inverse of `pack_solve_with_grids` on the buffer copied to the
         host (int16 or uint16: the same bits): (packed f32 [B, C + 19] as
-        `pack_result` lays it out, f16 grids [B, D, D, D] for
-        `meshes_from_grids`)."""
+        `pack_result` lays it out, f16 grids [B, D, D, D])."""
         n_head = 2 * (self.spec.code_length + 19)
         d = self.voxels_dim
         head = np.ascontiguousarray(host_u16[:, :n_head]).view(np.float32)
         grids = np.ascontiguousarray(host_u16[:, n_head:]).view(np.float16)
         return head, grids.reshape(-1, d, d, d)
 
-    def meshes_from_grids(self, grids) -> List[TriangleMesh]:
-        """Host iso-surfacing of grids from `decode_grids` (a tensor) or
-        `unpack_solve_with_grids` (host numpy)."""
+    def meshes_from_grids(self, grids: torch.Tensor) -> List[TriangleMesh]:
+        """Host iso-surfacing of grids from `decode_grids`."""
         d = self.voxels_dim
-        if isinstance(grids, torch.Tensor):
-            grids = grids.detach().cpu().numpy()
-        host = grids.reshape(-1, d, d, d)
+        host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
         # threads pay only from 64^3 up: the native call releases the GIL,
         # but at smaller grids the per-fruit numpy work around it dominates
         if host.shape[0] > 4 and d >= 64:

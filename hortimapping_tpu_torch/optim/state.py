@@ -29,13 +29,15 @@ def stack_observations(obs_list: Sequence, device: str | torch.device = "cuda") 
     """Stack per-fruit numpy observations (e.g. from `tools/synthetic.
     make_scene`) into one batch on `device`, in one upload per field."""
     dev = resolve_device(device)
-    fields = []
-    for name in FruitObservations._fields:
-        arr = np.stack([np.asarray(getattr(o, name)) for o in obs_list])
-        if arr.dtype != np.bool_:
-            arr = arr.astype(np.float32)
-        fields.append(torch.as_tensor(arr).to(dev))
-    return FruitObservations(*fields)
+    return FruitObservations(*(upload(np.stack([np.asarray(getattr(o, f)) for o in obs_list]), dev)
+                               for f in FruitObservations._fields))
+
+
+def upload(arr, dev: torch.device) -> torch.Tensor:
+    """One host array onto `dev`: a bool mask as it is, anything numeric in
+    f32."""
+    arr = np.asarray(arr)
+    return torch.as_tensor(arr if arr.dtype == np.bool_ else arr.astype(np.float32)).to(dev)
 
 
 class OptState(NamedTuple):

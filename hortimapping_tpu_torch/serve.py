@@ -19,10 +19,11 @@ packed solve (`optim/lm.joint_opt_packed`):
     results cross to the host in one copy, and iso-surfaces them on the
     host.
 
-The worker is a one-deep pipeline: batch k+1 is assembled and solved before
-batch k's results are copied and meshed. The LM loop reads its convergence
-flags back once an iteration, so on the card only batch k+1's grid decode
-overlaps batch k's host meshing.
+Unlike the JAX package's worker, this one completes each batch before it
+packs the next: the LM loop reads its convergence flags back once an
+iteration, so a one-deep pipeline would overlap nothing on the card (batch
+k's copy would queue behind batch k+1's grid decode on the one stream) and
+would hold batch k's results until batch k+1 is solved.
 
 No counterpart of the JAX package's fruit-parallel mesh: `use_mesh=True`
 raises (`ROADMAP.md` Queue A, fruit-parallel execution across GPUs).
@@ -45,7 +46,7 @@ from hortimapping_tpu_torch.config import JointOptConfig
 from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 from hortimapping_tpu_torch.optim import lm
-from hortimapping_tpu_torch.optim.state import FruitObservations
+from hortimapping_tpu_torch.optim.state import FruitObservations, upload
 
 
 @dataclasses.dataclass
@@ -125,16 +126,6 @@ def _assemble_batch_np(reqs: List[CompletionRequest], target: int):
         eye = np.broadcast_to(np.eye(4, dtype=f32), (rem, 4, 4))
         T0 = np.concatenate([T0, eye])
     return obs, lat0, T0
-
-
-def _to_device(obs: FruitObservations, lat0: np.ndarray, T0: np.ndarray, dev: torch.device):
-    """A host batch onto `dev`, numeric fields in f32 as
-    `optim/state.stack_observations` uploads them."""
-    def up(a):
-        a = np.asarray(a)
-        return torch.as_tensor(a if a.dtype == np.bool_ else a.astype(np.float32)).to(dev)
-
-    return FruitObservations(*(up(a) for a in obs)), up(lat0), up(T0)
 
 
 def _shape_key(req: CompletionRequest) -> Tuple:
@@ -353,10 +344,12 @@ class CompletionServer:
             packed.cpu()
 
     def _solve(self, obs, lat0, T0, pose_known: bool):
+        """One host batch (`_assemble_batch_np`) through the packed solve."""
+        dev = self.device
         return lm.joint_opt_packed(
-            self.params, self.spec, self.cfg, *_to_device(obs, lat0, T0, self.device),
-            self.cube_radius, pose_known, latent_table=self.latent_table, device=self.device,
-            packs=self._packs)
+            self.params, self.spec, self.cfg, FruitObservations(*(upload(a, dev) for a in obs)),
+            upload(lat0, dev), upload(T0, dev), self.cube_radius, pose_known,
+            latent_table=self.latent_table, device=dev, packs=self._packs)
 
     def stats(self) -> Dict:
         with self._lock:
@@ -410,30 +403,29 @@ class CompletionServer:
             except queue.Empty:
                 return got
 
-    def _drain(self, wait: bool = True) -> List[Tuple[CompletionRequest, Future, float]]:
+    def _drain(self) -> List[Tuple[CompletionRequest, Future, float]]:
         """Pick the bucket whose head request is oldest (FIFO across shape
         buckets: a steady majority stream cannot starve a minority bucket),
         then wait up to max_wait_s for more of its requests to fill the
-        batch. `wait=False` (a batch is in flight) takes what is ready."""
-        if not self._pending and not self._pump(0.05 if wait else 0.0):
+        batch."""
+        if not self._pending and not self._pump(0.05):
             return []
         key = min(self._pending, key=lambda k: self._pending[k][0][2])
         dq = self._pending[key]
-        if wait:
-            deadline = time.perf_counter() + self.max_wait_s
-            while len(dq) < self.max_batch:
-                timeout = deadline - time.perf_counter()
-                if timeout <= 0 or not self._pump(timeout):
-                    break
+        deadline = time.perf_counter() + self.max_wait_s
+        while len(dq) < self.max_batch:
+            timeout = deadline - time.perf_counter()
+            if timeout <= 0 or not self._pump(timeout):
+                break
         batch = [dq.popleft() for _ in range(min(self.max_batch, len(dq)))]
         if not dq:
             del self._pending[key]
         return batch
 
-    def _launch(self, batch):
-        """Assemble and solve one batch (with meshing on, its grid decode
-        queued into the same buffer); returns the state to complete later,
-        or None after failing the batch's Futures."""
+    def _serve(self, batch) -> None:
+        """Assemble, solve and (with meshing on) decode one batch, copy its
+        results to the host in one copy and resolve its Futures; on an
+        exception, resolve each of them with it."""
         reqs = [b[0] for b in batch]
         futs = [b[1] for b in batch]
         try:
@@ -442,27 +434,13 @@ class CompletionServer:
             # not pay for a full-width solve
             obs, lat0, T0 = _assemble_batch_np(reqs, self._batch_width(n))
             res, packed_dev = self._solve(obs, lat0, T0, reqs[0].pose_known)
-            combo_dev = None
-            if self.mesher is not None:
-                combo_dev, packed_dev = self.mesher.pack_solve_with_grids(res), None
-            return dict(reqs=reqs, futs=futs, t_sub=[b[2] for b in batch], n=n,
-                        C=res.latent.shape[1], packed_dev=packed_dev, combo_dev=combo_dev)
-        except Exception as e:  # deliver the failure to every waiter
-            for fut in futs:
-                if not fut.done():
-                    fut.set_exception(e)
-            return None
-
-    def _complete(self, st) -> None:
-        """Copy a launched batch's results to the host (one copy) and
-        resolve its Futures."""
-        try:
-            n, C = st["n"], st["C"]
+            C = res.latent.shape[1]
             grids = None
-            if st["combo_dev"] is not None:
-                packed, grids = self.mesher.unpack_solve_with_grids(st["combo_dev"].cpu().numpy())
+            if self.mesher is not None:
+                combo = self.mesher.pack_solve_with_grids(res).cpu().numpy()
+                packed, grids = self.mesher.unpack_solve_with_grids(combo)
             else:
-                packed = st["packed_dev"].cpu().numpy()
+                packed = packed_dev.cpu().numpy()
             latents = packed[:, :C]
             T_ows = packed[:, C:C + 16].reshape(-1, 4, 4)
             iters = packed[:, C + 16].astype(np.int32)
@@ -472,42 +450,37 @@ class CompletionServer:
             if grids is not None:
                 T_wo = np.linalg.inv(T_ows[:n])
                 meshes = [m.transform(T) for m, T in
-                          zip(self.mesher.meshes_from_grids(grids[:n]), T_wo)]
+                          zip(self.mesher.meshes_from_grids(torch.from_numpy(grids[:n])), T_wo)]
             now = time.perf_counter()
-            for i, fut in enumerate(st["futs"]):
+            for i, fut in enumerate(futs):
                 if fut.done():  # e.g. cancelled by the client meanwhile
                     continue
                 fut.set_result(CompletionResult(
-                    fruit_id=st["reqs"][i].fruit_id,
+                    fruit_id=reqs[i].fruit_id,
                     latent=latents[i],
                     T_ow=T_ows[i],
                     iter_count=int(iters[i]),
                     failed=bool(failed[i]),
                     converged=bool(conv[i]),
                     mesh=meshes[i],
-                    latency_s=now - st["t_sub"][i],
+                    latency_s=now - batch[i][2],
                     batch_size=n,
                 ))
             with self._lock:
                 self._completed += n
-                self._latencies.extend(now - t for t in st["t_sub"])
-        except Exception as e:
-            for fut in st["futs"]:
+                self._latencies.extend(now - b[2] for b in batch)
+        except Exception as e:  # deliver the failure to every waiter
+            for fut in futs:
                 if not fut.done():
                     fut.set_exception(e)
 
     def _worker(self) -> None:
-        # one-deep pipeline: solve batch k+1 before copying and meshing
-        # batch k
-        inflight = None
-        while (not self._stop.is_set() or not self._q.empty()
-               or self._pending or inflight is not None):
-            batch = self._drain(wait=inflight is None)
+        # each batch is completed before the next is packed (module docstring)
+        while not self._stop.is_set() or not self._q.empty() or self._pending:
+            batch = self._drain()
             # pack-time deadline check: an expired request takes no lane
             batch = [b for b in batch if not self._expire(b)]
             # honour a client's Future.cancel() before paying for the lane
             batch = [b for b in batch if b[1].set_running_or_notify_cancel()]
-            nxt = self._launch(batch) if batch else None
-            if inflight is not None:
-                self._complete(inflight)
-            inflight = nxt
+            if batch:
+                self._serve(batch)

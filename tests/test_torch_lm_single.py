@@ -292,7 +292,8 @@ def test_pack_solve_with_grids_round_trip(world, port):
     want = mesher.decode_grids(res.latent).numpy().reshape(B, 24, 24, 24)
     assert grids.dtype == np.float16
     np.testing.assert_array_equal(grids.view(np.uint16), want.view(np.uint16))
-    got_m, want_m = mesher.meshes_from_grids(grids), mesher.extract_batch(res.latent)
+    got_m = mesher.meshes_from_grids(torch.from_numpy(grids))
+    want_m = mesher.extract_batch(res.latent)
     for a, b in zip(got_m, want_m):
         np.testing.assert_array_equal(a.vertices, b.vertices)
         np.testing.assert_array_equal(a.faces, b.faces)

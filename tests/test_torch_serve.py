@@ -7,15 +7,17 @@ Tolerances. Each port result is held lane for lane to the JAX server's
 result for the same request (single device, `use_mesh=False`): iteration
 counts, `failed` flags and `batch_size` equal, latent and pose within 2e-4
 (`tests/test_torch_solver.py`: f32 sums in another order over 3
-iterations). A lane may leave JAX's by more only where JAX's own solve of
-that request (alone) moves by more than 2e-4 when its start pose moves by
-a relative 1e-5 (`_explained`). Such a lane sits next to a threshold (a
-ray or sample switching) or has an ill-conditioned damped system (2 frames
-of 64 rays; condition numbers ~1.5e4): from the same state the packages'
-normal equations differ by ~1e-6 relative, which one solve of such a
-system carries to ~1e-2 relative in the step, the order of what a 1e-5
-move of the start does. On these cases 2 of the ~60 served lanes are so
-held (`fruit_001` of seed 55, `fruit_025` of seed 3).
+iterations). The fixed-lambda schedule of `CFG` carries a few lanes across
+render-band edges (`tests/test_torch_challenge.py` docstring). Such a lane
+is also solved alone under JAX's two probes of that file: JAX's solve
+continued from the port's first iterate (which must agree with JAX's own
+within 1e-6), and JAX's LM iteration dispatched op by op. Where a probe
+moves JAX's lane by more than 2e-4, the port's lane is held, at the same
+2e-4, to the one of JAX's runs (served, or a probe's) that lies nearest to
+it. Each case names the lanes so held, and no other lane may take that
+route: on these cases 2 of the ~60 served lanes (`fruit_001` of seed 55,
+`fruit_025` of seed 3; measured: each within 1e-6 of both probes, 1.5e-3
+and 1.4e-2 from JAX's served run).
 Where a case holds the server to a direct solve in the same package at the
 same batch width, the bound is JAX's own 1e-5. Served meshes lie within
 half a voxel of JAX's (mean symmetric nearest-neighbour distance). JAX's
@@ -118,38 +120,57 @@ def _jax_served(decoders, jreqs, cfg=JCFG, table=None, sequential=False, **kw):
     return {r.fruit_id: r for r in results}
 
 
-def _explained(decoders, jreq, jcfg=JCFG, table=None) -> bool:
-    """Whether JAX's own solve of the request (alone) moves by more than
-    2e-4 when its start pose moves by a relative 1e-5 (module docstring)."""
-    from hortimapping_tpu.optim.warmstart import maybe_retrieval_init as jretrieve
+def _jax_probes(decoders, jreq, jcfg):
+    """JAX's solve of the request alone under the two probes of the module
+    docstring: (latent, T_ow) of each."""
     from hortimapping_tpu.serve import _assemble_batch_np as jassemble
+    from test_torch_challenge import jax_op_by_op
 
-    assert not jcfg.coarse_to_fine and jcfg.pose_polish_iters == 0 and not jcfg.trust_region
+    assert jcfg.init_mode == "mean" and not jcfg.coarse_to_fine and jcfg.pose_polish_iters == 0
     obs, lat0, T0 = jassemble([jreq], 1)
-    if table is not None:
-        lat0, T0 = jretrieve(decoders[0], decoders[1], jcfg, table, obs, lat0, T0)
-    T1 = np.array(T0)
-    T1[:, :3] *= 1 + 1e-5
-    a, b = (jlm.joint_opt_packed(decoders[0], decoders[1], jcfg, obs, lat0, T, RADIUS)[0]
-            for T in (T0, T1))
-    return max(np.abs(np.asarray(a.latent) - np.asarray(b.latent)).max(),
-               np.abs(np.asarray(a.T_ow) - np.asarray(b.T_ow)).max()) > 2e-4
+    first_cfg = dataclasses.replace(jcfg, max_iter=1)
+    tobs = FruitObservations(*(torch.as_tensor(np.array(a)) for a in obs))
+    first_t = tlm.shape_pose_joint_opt_batched(
+        decoders[2], decoders[3], JointOptConfig(**dataclasses.asdict(first_cfg)), tobs,
+        torch.as_tensor(lat0), torch.as_tensor(T0), RADIUS, device="cpu")
+    first_j = jlm.shape_pose_joint_opt_batched(decoders[0], decoders[1], first_cfg, obs, lat0, T0,
+                                               RADIUS)
+    np.testing.assert_allclose(first_t.latent.numpy(), np.asarray(first_j.latent), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(first_t.T_ow.numpy(), np.asarray(first_j.T_ow), atol=1e-6, rtol=0)
+    runs = [jlm._continue_joint_opt_batched(decoders[0], decoders[1], jcfg, obs,
+                                            jnp.asarray(first_t.latent.numpy()),
+                                            jnp.asarray(first_t.T_ow.numpy()), RADIUS, False, 1),
+            jax_op_by_op(None, decoders[0], decoders[1], jcfg, None, obs, lat0, T0, RADIUS, False)]
+    return [(np.asarray(r.latent[0]), np.asarray(r.T_ow[0])) for r in runs]
 
 
-EXPLAINED = []   # the lanes held by their counts and flags only
+def _gap(latent_a, T_a, latent_b, T_b):
+    return max(np.abs(latent_a - latent_b).max(), np.abs(T_a - T_b).max())
 
 
-def _held(got, want, decoders, jreq, batch_size=True, jcfg=JCFG, table=None):
-    """Lane for lane (module docstring): `jreq` is the JAX request."""
-    assert got.fruit_id == want.fruit_id == jreq.fruit_id
-    assert got.iter_count == want.iter_count and got.failed == want.failed
-    assert got.converged == want.converged
-    if batch_size:
-        assert got.batch_size == want.batch_size
-    gap = max(np.abs(got.latent - want.latent).max(), np.abs(got.T_ow - want.T_ow).max())
-    if gap > 2e-4:
-        assert _explained(decoders, jreq, jcfg, table), (got.fruit_id, gap)
-        EXPLAINED.append(got.fruit_id)
+def _held(results, jax_res, decoders, jreqs, moved=(), batch_size=True, jcfg=JCFG):
+    """Each port result lane for lane to JAX's (module docstring); `jreqs`:
+    the JAX requests. `moved`: the fruit ids of the lanes a probe moves,
+    which are held to the nearest of JAX's runs; exactly these may be."""
+    jreqs = {r.fruit_id: r for r in jreqs}
+    held_to_probe = set()
+    for got in results:
+        want = jax_res[got.fruit_id]
+        assert got.fruit_id == want.fruit_id
+        assert got.iter_count == want.iter_count and got.failed == want.failed
+        assert got.converged == want.converged
+        if batch_size:
+            assert got.batch_size == want.batch_size
+        if _gap(got.latent, got.T_ow, want.latent, want.T_ow) <= 2e-4:
+            continue
+        probes = _jax_probes(decoders, jreqs[got.fruit_id], jcfg)
+        assert max(_gap(*p, want.latent, want.T_ow) for p in probes) > 2e-4, got.fruit_id
+        nearest = min(_gap(got.latent, got.T_ow, *run)
+                      for run in [(want.latent, want.T_ow), *probes])
+        assert nearest <= 2e-4, (got.fruit_id, nearest)
+        held_to_probe.add(got.fruit_id)
+    assert held_to_probe == set(moved)
 
 
 def _direct(decoders, reqs, solver=tlm.shape_pose_joint_opt_batched, cfg=CFG):
@@ -173,9 +194,7 @@ def test_serve_matches_direct_batched_solve(decoders):
         assert not r.failed and r.batch_size == 5 and r.latency_s > 0
     stats = srv.stats()
     assert stats["completed"] == 5 and stats["fruits_per_sec"] > 0 and stats["devices"] == 1
-    jax_res = _jax_served(decoders, jreqs, max_batch=5)
-    for r, jr in zip(results, jreqs):
-        _held(r, jax_res[r.fruit_id], decoders, jr)
+    _held(results, _jax_served(decoders, jreqs, max_batch=5), decoders, jreqs)
 
 
 def test_serve_partial_batch_padding(decoders):
@@ -185,9 +204,7 @@ def test_serve_partial_batch_padding(decoders):
     with _server(decoders, max_batch=8, max_wait_s=2.0) as srv:
         results = [f.result(timeout=300) for f in [srv.submit(r) for r in reqs]]
     assert all(not r.failed and r.batch_size == 3 for r in results)
-    jax_res = _jax_served(decoders, jreqs, max_batch=8, max_wait_s=2.0)
-    for r, jr in zip(results, jreqs):
-        _held(r, jax_res[r.fruit_id], decoders, jr)
+    _held(results, _jax_served(decoders, jreqs, max_batch=8, max_wait_s=2.0), decoders, jreqs)
 
 
 def test_padded_lane_fails_at_once_and_leaves_the_real_lanes(decoders):
@@ -231,9 +248,7 @@ def test_serve_multiple_waves_reuse_program(decoders):
     assert second < max(2.0 * first, first + 1.0), (first, second)
     assert srv.stats()["completed"] == 8
     for jreqs, res in ((jreqs_a, first_res), (jreqs_b, second_res)):
-        jax_res = _jax_served(decoders, jreqs, max_batch=4, sequential=True)
-        for r, jr in zip(res, jreqs):
-            _held(r, jax_res[r.fruit_id], decoders, jr)
+        _held(res, _jax_served(decoders, jreqs, max_batch=4, sequential=True), decoders, jreqs)
 
 
 def test_serve_meshing(decoders):
@@ -249,12 +264,11 @@ def test_serve_meshing(decoders):
     jax_res = _jax_served(decoders, jreqs, max_batch=2, sequential=True,
                           mesher=JMesher(decoders[0], decoders[1], voxels_dim=VOXELS,
                                          cube_radius=RADIUS))
+    _held(results, jax_res, decoders, jreqs)
     voxel = 2 * RADIUS / (VOXELS - 1)
     for r in results:
         assert r.mesh is not None and r.mesh.vertices.shape[0] > 0
-        want = jax_res[r.fruit_id]
-        _held(r, want, decoders, jreqs[int(r.fruit_id[-3:])])
-        a, b = r.mesh.vertices, np.asarray(want.mesh.vertices)
+        a, b = r.mesh.vertices, np.asarray(jax_res[r.fruit_id].mesh.vertices)
         gap = 0.5 * (cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean())
         assert gap <= 0.5 * voxel, gap
 
@@ -267,9 +281,8 @@ def test_serve_mixed_shape_buckets(decoders):
         results = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs_a + reqs_b]]
     assert all(r.batch_size == 2 and not r.failed for r in results)
     assert _shape_key(reqs_a[0]) != _shape_key(reqs_b[0])
-    jax_res = _jax_served(decoders, jreqs_a + jreqs_b, max_batch=8, max_wait_s=1.0)
-    for r, jr in zip(results, jreqs_a + jreqs_b):
-        _held(r, jax_res[r.fruit_id], decoders, jr)
+    _held(results, _jax_served(decoders, jreqs_a + jreqs_b, max_batch=8, max_wait_s=1.0),
+          decoders, jreqs_a + jreqs_b)
 
 
 def test_serve_minority_bucket_not_starved(decoders):
@@ -311,10 +324,9 @@ def test_serve_minority_bucket_not_starved(decoders):
     pos_b = order.index("B")
     assert pos_b < len(order) - 8, f"minority request served at {pos_b}/{len(order)}: starved"
     assert srv.stats()["latency_p95_s"] > 0.0
-    jreqs = {r.fruit_id: r for r in jmaj + jmin[:1]}
-    jax_res = _jax_served(decoders, list(jreqs.values()), max_batch=2)
-    for fid, r in results.items():
-        _held(r, jax_res[fid], decoders, jreqs[fid], batch_size=False)
+    jreqs = jmaj + jmin[:1]
+    _held(results.values(), _jax_served(decoders, jreqs, max_batch=2), decoders, jreqs,
+          moved={"fruit_025"}, batch_size=False)
 
 
 def test_serve_coarse_to_fine_matches_direct(decoders):
@@ -328,9 +340,7 @@ def test_serve_coarse_to_fine_matches_direct(decoders):
         assert not r.failed
         np.testing.assert_allclose(r.latent, want.latent[i].numpy(), atol=1e-5)
         np.testing.assert_allclose(r.T_ow, want.T_ow[i].numpy(), atol=1e-5)
-    jax_res = _jax_served(decoders, jreqs, jcfg, max_batch=3)
-    for r, jr in zip(results, jreqs):
-        _held(r, jax_res[r.fruit_id], decoders, jr, jcfg=jcfg)
+    _held(results, _jax_served(decoders, jreqs, jcfg, max_batch=3), decoders, jreqs, jcfg=jcfg)
 
 
 def test_serve_restart_after_stop_raises(decoders):
@@ -368,9 +378,8 @@ def test_serve_admission_control(decoders):
     assert srv.stats()["inflight"] == 0
     jax_res = _jax_served(decoders, jreqs[:2], max_batch=8, max_wait_s=2.0)
     jax_res.update(_jax_served(decoders, jreqs[3:], max_batch=8))
-    for r, jr in zip((r0, r1, r3), (jreqs[0], jreqs[1], jreqs[3])):
-        assert not r.failed
-        _held(r, jax_res[r.fruit_id], decoders, jr)
+    assert not any(r.failed for r in (r0, r1, r3))
+    _held((r0, r1, r3), jax_res, decoders, jreqs, moved={"fruit_001"})
 
 
 def test_serve_deadline(decoders):
@@ -386,10 +395,9 @@ def test_serve_deadline(decoders):
         r_ok, r_plain = f_ok.result(timeout=300), f_plain.result(timeout=300)
         stats = srv.stats()
     assert stats["deadline_expired"] == 1 and stats["completed"] == 2
-    jax_res = _jax_served(decoders, jreqs[1:], max_batch=4, max_wait_s=1.0)
-    for r, jr in zip((r_ok, r_plain), jreqs[1:]):
-        assert not r.failed
-        _held(r, jax_res[r.fruit_id], decoders, jr)
+    assert not r_ok.failed and not r_plain.failed
+    _held((r_ok, r_plain), _jax_served(decoders, jreqs[1:], max_batch=4, max_wait_s=1.0), decoders,
+          jreqs)
 
 
 def test_serve_batch_width_capped_and_warmed(decoders):
@@ -415,10 +423,9 @@ def test_serve_warmup_then_serve(decoders):
     with srv:
         got = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
     want = _direct(decoders, reqs)
-    jax_res = _jax_served(decoders, jreqs, max_batch=4)
     for i, g in enumerate(got):
         np.testing.assert_allclose(g.latent, want.latent[i].numpy(), atol=1e-5)
-        _held(g, jax_res[g.fruit_id], decoders, jreqs[i])
+    _held(got, _jax_served(decoders, jreqs, max_batch=4), decoders, jreqs)
 
 
 def test_serve_retrieval_warmstart_matches_direct(decoders):
@@ -441,9 +448,8 @@ def test_serve_retrieval_warmstart_matches_direct(decoders):
         assert not r.failed
         np.testing.assert_allclose(r.latent, want.latent[i].numpy(), atol=1e-5)
         np.testing.assert_allclose(r.T_ow, want.T_ow[i].numpy(), atol=1e-5)
-    jax_res = _jax_served(decoders, jreqs, jcfg, table=jnp.asarray(table), max_batch=3)
-    for r, jr in zip(results, jreqs):
-        _held(r, jax_res[r.fruit_id], decoders, jr, jcfg=jcfg, table=jnp.asarray(table))
+    _held(results, _jax_served(decoders, jreqs, jcfg, table=jnp.asarray(table), max_batch=3),
+          decoders, jreqs, jcfg=jcfg)
 
 
 def test_serve_multi_start_rejected(decoders):
@@ -461,9 +467,8 @@ def test_serve_warmup_multiple_buckets(decoders):
     with srv:
         results = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs_a + reqs_b]]
     assert all(not r.failed and r.batch_size == 2 for r in results)
-    jax_res = _jax_served(decoders, jreqs_a + jreqs_b, max_batch=2, max_wait_s=0.5)
-    for r, jr in zip(results, jreqs_a + jreqs_b):
-        _held(r, jax_res[r.fruit_id], decoders, jr)
+    _held(results, _jax_served(decoders, jreqs_a + jreqs_b, max_batch=2, max_wait_s=0.5),
+          decoders, jreqs_a + jreqs_b)
 
 
 def test_serve_expire_skips_done_future(decoders):
