@@ -94,14 +94,32 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      p95 / max, fruits/s); admission control (`ServerOverloaded` at
      max_queue 8) and a deadline of 0 behind a busy batch
      (`DeadlineExceeded`);
- 14. one JSON line of kernel records (the four kernels at their greenhouse
+ 14. the training path at full width: 256 ellipsoid scenes of the pepper
+     family (16384 + 16384 samples each) written as DeepSDF SdfSamples to a
+     temporary directory; `train_deepsdf` on an experiment of
+     assets/synthetic_pepper_32's architecture (8 x 512, C = 32) at 64 x 8192
+     rows a step for 20 epochs (80 steps) with a snapshot at epoch 10: ms a
+     step, rows/s, the share of the f32 bound, peak memory, a falling loss;
+     a resumed run from the snapshot held to the first run's losses; the
+     checkpoint loaded by `config_decoder` and 8 codes of its table meshed
+     (B4, counted over the path), B4 against its plain version on that
+     decoder, and two steps of a small decoder on the card held to the same
+     steps on the CPU (replayed draws; TF32 off);
+ 15. the asset build and the torch checkpoint: `make_category` of
+     synthetic_pepper_32 (12000 steps x 8192 rows, cut and the cut printed if
+     the script would pass 1000 s) timed, its SDF error on 65536 held-out
+     points within 1.5x the shipped decoder's; the shipped decoder written as
+     the reference's weight-normed `.pth` files and loaded on the card, its
+     SDF within 1e-6 of the native load's;
+ 16. one JSON line of kernel records (the four kernels at their greenhouse
      shapes, then each kernel on the greenhouse-from-disk runs and the
-     served batches), then the JSON result line.
+     served batches, and B4 on the trained decoder), then the JSON result
+     line.
 With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
-challenge run, one lab multi-frame run, one greenhouse-from-disk run and one
-served burst are traced by torch.profiler (device-time tables appended to
-FILE, idle share printed), and one more greenhouse batch with the SDF term's
-frozen-lane skip turned off.
+challenge run, one lab multi-frame run, one greenhouse-from-disk run, one
+served burst and one training epoch are traced by torch.profiler
+(device-time tables appended to FILE, idle share printed), and one more
+greenhouse batch with the SDF term's frozen-lane skip turned off.
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 4). The JAX package is never imported.
@@ -156,6 +174,11 @@ GH_REPS = 2                    # timed runs of each greenhouse run, cut from 3 f
                                # script's time (a multi-frame run of the 32 fruits takes
                                # ~22 s, ~10 s of it sampling the 8 background submaps)
 GH_MEMORY = "greenhouse in memory"   # the path of the kernels line's first four rows
+TRAIN_SCENES = 256             # SdfSamples scenes of the training path (~134 MB)
+TRAIN_SAMPLES = 16384          # samples of each sign a scene
+TRAIN_EPOCHS = 20              # 4 steps an epoch at ScenesPerBatch 64: 80 steps
+SCRIPT_BUDGET_S = 1000         # phase 15 cuts the asset build's steps to end the script by then
+HELD_OUT = 65536               # held-out points of the built decoder's SDF error
 KERNEL_SOURCES = {             # kernel: (its source, the TPU kernel it replaces)
     "mlp_fwd_grad": ("hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
                      "hortimapping_tpu/ops/pallas_mlp.py:198"),
@@ -1752,12 +1775,369 @@ def serve_path(params, spec, table, smi, dev, profile=None, n_batch=N_FRUITS, n_
     return counts.n
 
 
+def write_sdf_samples(root: str, cat, n_scenes: int, n_each: int, seed: int = 0):
+    """DeepSDF SdfSamples of `n_scenes` ellipsoids of the category's family
+    (codes ~ N(0, 0.5^2)), `n_each` samples of each sign a scene: points
+    near the surface (a surface point moved along its ray by N(0, 0.1^2)
+    of its radius) and uniform in the box of half-width 2.5 base radii, as
+    upstream DeepSDF mixes near-surface and uniform samples. -> the names."""
+    import numpy as np
+
+    from hortimapping_tpu_torch.tools.synthetic import _ellipsoid_sdf_np
+
+    rng = np.random.default_rng(seed)
+    proj = cat.projection()
+    ext = 2.5 * cat.base_radius
+    os.makedirs(os.path.join(root, "SdfSamples"), exist_ok=True)
+    names = []
+    for s in range(n_scenes):
+        radii = cat.base_radius * np.exp(proj @ (rng.normal(size=cat.spec.code_length) * 0.5))
+        d = rng.normal(size=(3 * n_each, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        x = np.concatenate([d * radii * (1.0 + rng.normal(size=(3 * n_each, 1)) * 0.1),
+                            rng.uniform(-ext, ext, size=(n_each // 2, 3))])
+        sdf = _ellipsoid_sdf_np(x, radii)
+        samples = np.concatenate([x, sdf[:, None]], axis=-1).astype(np.float32)
+        pos, neg = samples[sdf >= 0][:n_each], samples[sdf < 0][:n_each]
+        assert pos.shape[0] == neg.shape[0] == n_each, (s, pos.shape, neg.shape)
+        names.append(f"ellipsoid_{s:04d}")
+        np.savez(os.path.join(root, "SdfSamples", names[-1] + ".npz"), pos=pos, neg=neg)
+    return names
+
+
+def train_experiment(root: str, data: str, arch_dir: str, **fields) -> str:
+    """An experiment directory with `arch_dir`'s architecture and the
+    upstream DeepSDF training fields (overridden by `fields`)."""
+    with open(os.path.join(arch_dir, "specs.json")) as f:
+        arch = json.load(f)
+    specs = dict(
+        Description="chip_smoke training path", DataSource=data, CodeLength=arch["CodeLength"],
+        NetworkSpecs=arch["NetworkSpecs"], ClampingDistance=arch["ClampingDistance"],
+        ScenesPerBatch=64, SamplesPerScene=8192, NumEpochs=TRAIN_EPOCHS, CodeRegularization=True,
+        CodeRegularizationLambda=1e-4, CodeInitStdDev=0.01,
+        LearningRateSchedule=[{"Type": "Step", "Initial": 5e-4, "Interval": 500, "Factor": 0.5},
+                              {"Type": "Step", "Initial": 1e-3, "Interval": 500, "Factor": 0.5}])
+    specs.update(fields)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "specs.json"), "w") as f:
+        json.dump(specs, f, indent=2)
+    return root
+
+
+@contextlib.contextmanager
+def replayed_training(init, draws=None, record=None):
+    """The trainer started from `init` (a function of the device) and, with
+    `record`, its draws appended there, or with `draws`, those draws moved
+    to the run's device and replayed in turn."""
+    from hortimapping_tpu_torch.train import deepsdf
+
+    saved = deepsdf.init_decoder_params, deepsdf._draw_step
+    orig_draw = deepsdf._draw_step
+    deepsdf.init_decoder_params = lambda spec, g, dev: init(dev)
+
+    def draw(*a):
+        if draws is not None:
+            return tuple(t.to(a[4].device) for t in draws.pop(0))
+        record.append(tuple(t.cpu() for t in orig_draw(*a)))
+        return record[-1]
+
+    deepsdf._draw_step = draw
+    try:
+        yield
+    finally:
+        deepsdf.init_decoder_params, deepsdf._draw_step = saved
+
+
+def train_steps_card_vs_cpu(root: str, data: str, arch_dir: str, names, dev) -> None:
+    """Two training steps of a small decoder (4 x 128, C = 32, 8 scenes of
+    2048 samples) on the card against the same steps on the CPU, from one
+    init and the CPU's draws replayed on the card. Both f32: the epoch losses
+    within 1e-6 (their predictions differ by f32 rounding, ~2e-7), the
+    weights and codes within a hundredth of their group's lr (Adam's first
+    steps move each by ~lr; a gradient near zero moves its weight by up to
+    lr * dg / eps). A forward of the same decoder with TF32 on shows what
+    the gates would see were TF32 on (~1e-3)."""
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.models.decoder import (
+        DecoderSpec,
+        decoder_apply,
+        init_decoder_params,
+    )
+    from hortimapping_tpu_torch.train import deepsdf
+
+    fields = dict(CodeLength=32, NetworkSpecs={"dims": [128] * 4, "latent_in": [2]},
+                  ScenesPerBatch=8, SamplesPerScene=2048, NumEpochs=2)
+    exp_cpu, exp_card = (train_experiment(os.path.join(root, d), data, arch_dir, **fields)
+                         for d in ("cpu", "card"))
+    spec = DecoderSpec(code_length=32, dims=(128,) * 4, latent_in=(2,))
+    init_cpu = init_decoder_params(spec, torch.Generator().manual_seed(3), "cpu")
+
+    def init(device):
+        return {k: {kk: v.clone().to(device) for kk, v in p.items()} for k, p in init_cpu.items()}
+
+    kw = dict(split=list(names[:8]), save=False, log=lambda *a: None)
+    draws = []
+    with replayed_training(init, record=draws):
+        res_cpu = deepsdf.train_deepsdf(exp_cpu, device="cpu", **kw)
+    n_draws = len(draws)
+    with replayed_training(init, draws=draws):
+        res_card = deepsdf.train_deepsdf(exp_card, device=dev, **kw)
+    assert n_draws == 2 and not draws and not torch.backends.cuda.matmul.allow_tf32
+    d_loss = float(np.abs(res_card.losses - res_cpu.losses).max())
+    d_w = max(float((res_card.params[k][kk].cpu() - res_cpu.params[k][kk]).abs().max())
+              for k in res_cpu.params for kk in ("w", "b"))
+    d_z = float(np.abs(res_card.latent_codes - res_cpu.latent_codes).max())
+    # the same decoder's forward on the card with TF32 on, against the CPU
+    rows = torch.cat([torch.randn(65536, 32, generator=torch.Generator().manual_seed(4)) * 0.5,
+                      torch.rand(65536, 3, generator=torch.Generator().manual_seed(5)) * 0.3
+                      - 0.15], dim=1)
+    want = decoder_apply(res_cpu.params, spec, rows)
+    params_card = {k: {kk: v.to(dev) for kk, v in p.items()} for k, p in res_cpu.params.items()}
+    f32 = float((decoder_apply(params_card, spec, rows.to(dev)).cpu() - want).abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = float((decoder_apply(params_card, spec, rows.to(dev)).cpu() - want).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"training steps, card vs CPU (4 x 128, C 32, 8 scenes x 2048 samples, 2 steps, the "
+          f"CPU's draws replayed): epoch losses {res_card.losses.round(6).tolist()} | |d loss| "
+          f"{d_loss:.3g} (gate 1e-6) | |d weight| {d_w:.3g} (gate 5e-6 = lr/100), "
+          f"|d code| {d_z:.3g} (gate 1e-5) | forward of that decoder vs the CPU: f32 "
+          f"{f32:.3g}, with TF32 on {tf32:.3g}", flush=True)
+    assert d_loss <= 1e-6 and d_w <= 5e-6 and d_z <= 1e-5, (d_loss, d_w, d_z)
+
+
+def train_path(smi, dev, profile=None, n_scenes=TRAIN_SCENES, n_each=TRAIN_SAMPLES,
+               epochs=TRAIN_EPOCHS, scenes_per_batch=64, samples_per_scene=8192, voxels=VOXELS):
+    """Phase 14, the training path at full width: `n_scenes` ellipsoid scenes
+    of the pepper category written as SdfSamples to a temporary directory,
+    an experiment of `assets/synthetic_pepper_32`'s architecture (8 x 512,
+    C = 32, latent_in 4) at ScenesPerBatch x SamplesPerScene rows a step,
+    `train_deepsdf` for `epochs` epochs with a snapshot half-way, a resumed
+    run from that snapshot to the end (its epoch losses within 1e-3 of the
+    first run's: PyTorch does not promise a CUDA backward's summation
+    order), the written checkpoint loaded by `config_decoder` and 8 codes of
+    its table meshed (B4: the path's only kernel, counted over the whole
+    path), then B4 against its plain version on that decoder and two steps
+    on the card against the CPU. With `profile`, one more epoch continued
+    from the end is traced. -> B4's kernel record."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.models.decoder import DecoderSpec
+    from hortimapping_tpu_torch.models.workspace import (
+        config_decoder,
+        load_latent_vectors,
+        load_specs,
+    )
+    from hortimapping_tpu_torch.ops import mlp_kernels
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory
+    from hortimapping_tpu_torch.train import deepsdf
+
+    t_phase = time.perf_counter()
+    arch_dir = os.path.join(ROOT, "assets", "synthetic_pepper_32")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        with np.load(os.path.join(arch_dir, "native", "latest.npz")) as z:
+            cat = SyntheticCategory(spec=DecoderSpec.from_specs_json(load_specs(arch_dir)),
+                                    base_radius=float(z["synthetic.base_radius"]))
+        t0 = time.perf_counter()
+        names = write_sdf_samples(os.path.join(tmp, "data"), cat, n_scenes, n_each)
+        data_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, "data", "SdfSamples", n + ".npz"))
+                     for n in names)
+        fields = dict(ScenesPerBatch=scenes_per_batch, SamplesPerScene=samples_per_scene,
+                      NumEpochs=epochs)
+        exp_a = train_experiment(os.path.join(tmp, "run"), os.path.join(tmp, "data"), arch_dir,
+                                 **fields)
+        stamps = []
+        counts = LaunchCounts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = deepsdf.train_deepsdf(exp_a, num_epochs=epochs, snapshot_every=epochs // 2,
+                                    epochs_per_call=1, save=False, device=dev,
+                                    log=lambda msg: stamps.append(time.perf_counter()))
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res_b = deepsdf.train_deepsdf(exp_a, num_epochs=epochs, snapshot_every=epochs // 2,
+                                      epochs_per_call=1, resume=True, device=dev,
+                                      log=lambda msg: None)
+        params, spec = config_decoder(exp_a, device=dev)
+        table = load_latent_vectors(exp_a, device=dev)
+        mesher = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=CUBE_RADIUS,
+                               device=dev)
+        meshes = mesher.meshes_from_grids(mesher.decode_grids(table[:8]))
+        torch.cuda.synchronize()
+        counts.read()
+        counts.require(("mlp_shared_latent",), "training path")
+
+        spe = res.timing["steps_per_epoch"]
+        epoch_s = np.diff(np.asarray([t0] + stamps))
+        ms_step = float(np.median(epoch_s[1:])) * 1e3 / spe
+        rows = scenes_per_batch * (samples_per_scene // 2) * 2
+        macs = sum(i * o for i, o in spec.layer_dims())
+        bound_ms = 6.0 * macs * rows / H100_F32_FLOPS * 1e3   # forward 2, backward 4 flops a MAC
+        losses = res.losses
+        d_resume = float(np.abs(res_b.losses[epochs // 2:] - losses[epochs // 2:]).max()
+                         / losses.max())
+        print(f"training path: {n_scenes} scenes x {n_each} + {n_each} samples of the "
+              f"synthetic_pepper_32 family ({nbytes / 1e6:.1f} MB, written in {data_s:.1f} s) | "
+              f"{len(spec.dims)} x {spec.dims[0]}, C {spec.code_length}, latent_in "
+              f"{list(spec.latent_in)} | {scenes_per_batch} x {samples_per_scene} = {rows} rows a "
+              f"step, {spe} steps an epoch, {epochs} epochs in {wall:.1f} s | {ms_step:.1f} ms a "
+              f"step (median of epochs 2-{epochs} / {spe}), {rows / ms_step * 1e3:.4g} rows/s, "
+              f"f32 bound {bound_ms:.1f} ms ({macs} MACs a row x 6 flops at 67 TFLOP/s): "
+              f"{bound_ms / ms_step * 100:.1f} % of it | peak memory {peak_gb:.2f} GB | loss "
+              f"first epoch {losses[0]:.5f}, last {losses[-1]:.5f} | resumed from the epoch-"
+              f"{epochs // 2} snapshot: |d loss| {d_resume:.3g} of the loss (gate 1e-3), run "
+              f"{res_b.timing['wall_s']:.1f} s | trained table {tuple(table.shape)}, 8 codes "
+              f"meshed at {voxels}^3: faces {[m.faces.shape[0] for m in meshes]} | launches "
+              f"{counts} | {smi}", flush=True)
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        assert np.array_equal(res_b.losses[:epochs // 2], losses[:epochs // 2])
+        assert d_resume <= 1e-3, d_resume
+        assert table.shape == (n_scenes, spec.code_length)
+        if profile:
+            profile_main(lambda: deepsdf.train_deepsdf(
+                exp_a, num_epochs=epochs + 1, resume=True, save=False, device=dev,
+                log=lambda msg: None), smi, profile, "training path, one epoch")
+
+        pk32 = mlp_kernels.pack_params(params, spec, torch.float32)
+        pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+        b4 = check_shared_latent("trained decoder", params, spec, pk16, pk32, table[:8], dev,
+                                 surface=False, voxels=voxels)
+        train_steps_card_vs_cpu(tmp, os.path.join(tmp, "data"), arch_dir, names, dev)
+    print(f"training phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return kernel_record("mlp_shared_latent", b4, counts.n["mlp_shared_latent"],
+                         "training path: the trained decoder's 8 codes")
+
+
+def write_pth_experiment(root: str, src: str) -> None:
+    """Experiment `src` (a native checkpoint) rewritten as the reference's
+    torch checkpoint: `ModelParameters/latest.pth` weight-normed under
+    DataParallel's `module.` prefix (each row of v scaled apart from W, g its
+    norm) and `LatentCodes/latest.pth` as an `nn.Embedding` state dict."""
+    import shutil
+
+    import torch
+
+    from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
+
+    params, _ = config_decoder(src, device="cpu")
+    state = {}
+    for name, p in params.items():
+        w = p["w"].T.contiguous()                       # torch Linear: [out, in]
+        v = w * torch.linspace(0.5, 2.0, w.shape[0])[:, None]
+        state[f"module.{name}.weight_v"] = v
+        state[f"module.{name}.weight_g"] = torch.linalg.norm(w, dim=1, keepdim=True)
+        state[f"module.{name}.bias"] = p["b"]
+    for sub in ("ModelParameters", "LatentCodes"):
+        os.makedirs(os.path.join(root, sub))
+    shutil.copy(os.path.join(src, "specs.json"), root)
+    torch.save({"epoch": 2000, "model_state_dict": state},
+               os.path.join(root, "ModelParameters", "latest.pth"))
+    torch.save({"epoch": 2000, "latent_codes": {"weight": load_latent_vectors(src, device="cpu")}},
+               os.path.join(root, "LatentCodes", "latest.pth"))
+
+
+def asset_path(smi, dev, t_script0: float, name="synthetic_pepper_32", budget_s=SCRIPT_BUDGET_S,
+               n_held_out=HELD_OUT, n_pth=4096):
+    """Phase 15, the asset build and the `.pth` load: `make_category(name)`
+    at the category's own steps and rows (cut, and the cut printed, if the
+    script would pass `budget_s`), timed; its decoder's mean |pred -
+    clamp(analytic SDF)| on `n_held_out` points drawn as the trainer draws
+    them (a generator of its own) within 1.5x the shipped decoder's; then
+    the shipped decoder rewritten as the reference's `.pth` files and loaded
+    through `config_decoder` / `load_latent_vectors` on the card: the codes
+    equal, the SDF on `n_pth` points within 1e-6 of the native load's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.models.decoder import decoder_apply
+    from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
+    from hortimapping_tpu_torch.tools import make_assets
+    from hortimapping_tpu_torch.tools.synthetic import (
+        SyntheticCategory,
+        synthetic_batch,
+        train_synthetic_decoder,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = make_assets.CATEGORIES[name]
+    cat = SyntheticCategory(spec=cfg["spec"], base_radius=cfg["base_radius"])
+    # ms a step at the category's shape: a short run after a warm-up one
+    train_synthetic_decoder(cat, 1, steps=20, batch=cfg["batch"], lr=cfg["lr"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_synthetic_decoder(cat, 1, steps=200, batch=cfg["batch"], lr=cfg["lr"], device=dev)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / 200 * 1e3
+    left = budget_s - (time.perf_counter() - t_script0) - 20.0   # the rest of this phase
+    steps = cfg["steps"]
+    cut = ""
+    if steps * ms_step / 1e3 > left:
+        steps = max(1000, int(left * 1e3 / ms_step))
+        cut = f" (cut from {cfg['steps']} steps to end the script by {budget_s} s)"
+    shipped_dir = os.path.join(ROOT, "assets", name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_assets_") as tmp:
+        t0 = time.perf_counter()
+        out_dir = make_assets.make_category(name, tmp, device=dev, steps=steps)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with np.load(os.path.join(out_dir, "native", "latest.npz")) as zp, \
+                np.load(os.path.join(shipped_dir, "native", "latest.npz")) as zs:
+            assert np.array_equal(zp["synthetic.projection"], zs["synthetic.projection"])
+            assert sorted(zp.files) == sorted(zs.files)
+            proj = torch.as_tensor(zp["synthetic.projection"]).to(dev)
+        g = torch.Generator(device=dev).manual_seed(20261017)
+        inputs, target = synthetic_batch(g, cat, proj, n_held_out)
+        err = {}
+        for label, d in (("built", out_dir), ("shipped", shipped_dir)):
+            params, spec = config_decoder(d, device=dev)
+            pred = decoder_apply(params, spec, inputs)[..., 0]
+            err[label] = float((pred - target).abs().mean())
+        print(f"asset build: make_category({name!r}) {steps} steps x {cfg['batch']} rows"
+              f"{cut} in {build_s:.1f} s ({ms_step:.2f} ms a step in a 200-step run) | mean "
+              f"|pred - clamp(sdf)| on {n_held_out} held-out points, codes ~ N(0, 0.5^2): "
+              f"built {err['built']:.6f}, shipped {err['shipped']:.6f} (ratio "
+              f"{err['built'] / err['shipped']:.3f}, gate 1.5) | {smi}", flush=True)
+        assert err["built"] <= 1.5 * err["shipped"], err
+
+        exp = os.path.join(tmp, "pth")
+        write_pth_experiment(exp, shipped_dir)
+        params_x, spec_x = config_decoder(exp, device=dev)
+        codes_x = load_latent_vectors(exp, device=dev)
+        cached = os.path.isfile(os.path.join(exp, "native", "latest.npz"))
+        params_n, spec_n = config_decoder(shipped_dir, device=dev)
+        codes_n = load_latent_vectors(shipped_dir, device=dev)
+        assert spec_x == spec_n and torch.equal(codes_x, codes_n) and cached
+        x = torch.cat([codes_n[torch.arange(n_pth, device=dev) % codes_n.shape[0]],
+                       inputs[:n_pth, spec_n.code_length:]], dim=1)
+        d_sdf = float((decoder_apply(params_x, spec_x, x) - decoder_apply(params_n, spec_n, x))
+                      .abs().max())
+        d_w = max(float((params_x[k][kk] - params_n[k][kk]).abs().max())
+                  for k in params_n for kk in ("w", "b"))
+    print(f"torch checkpoint: the shipped {name} as weight-normed ModelParameters/latest.pth "
+          f"('module.' prefix) + nn.Embedding LatentCodes/latest.pth, loaded on the card | codes "
+          f"equal, native cache written | |d weight| {d_w:.3g}, |d sdf| {d_sdf:.3g} on {n_pth} "
+          f"points (gate 1e-6) | asset phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    assert d_sdf <= 1e-6, d_sdf
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="stop after the kernel phases")
     ap.add_argument("--profile", metavar="FILE",
                     help="also trace one main-path batch with torch.profiler, table to FILE")
     args = ap.parse_args()
+    t_script0 = time.perf_counter()
 
     import torch
 
@@ -2090,7 +2470,13 @@ def main() -> int:
              for k, c in (("mlp_fwd_grad", b1["bench fine"]), ("fused_render", b2["bench fine"]),
                           ("mlp_fwd", b3["bench"]), ("mlp_shared_latent", b4))]
 
-    # ---------------- 14. the JSON lines ----------------
+    # ---------------- 14. training path ----------------
+    rows.append(train_path(smi, dev, profile=args.profile))
+
+    # ---------------- 15. asset build and the torch checkpoint ----------------
+    asset_path(smi, dev, t_script0)
+
+    # ---------------- 16. the JSON lines ----------------
     print(json.dumps({"kernels": list(records.values()) + rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

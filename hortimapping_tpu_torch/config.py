@@ -144,7 +144,8 @@ class JointOptConfig:
 
     def check_ported(self) -> None:
         """Raise for the solver options whose slice of the port has not
-        landed yet (`ROADMAP.md` Queue A row 13)."""
+        landed yet (`ROADMAP.md` Queue A, "The compacted render paths"), and
+        for an `init_mode` other than mean or retrieval."""
         missing = []
         if self.init_mode not in ("mean", "retrieval"):
             missing.append(f"init_mode={self.init_mode!r}")

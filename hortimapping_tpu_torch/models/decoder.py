@@ -14,6 +14,8 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
+from hortimapping_tpu_torch.device import resolve_device
+
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
@@ -56,6 +58,21 @@ class DecoderSpec:
             latent_in=tuple(int(i) for i in ns.get("latent_in", ())),
             clamping_distance=float(specs.get("ClampingDistance", 0.1)),
         )
+
+
+def init_decoder_params(
+    spec: DecoderSpec, generator: torch.Generator, device: str | torch.device = "cuda"
+) -> Params:
+    """He init, as the JAX package's: normal weights times sqrt(2 / fan_in),
+    stored [in, out], zero biases, f32, drawn from `generator` (which lives
+    on `device`) layer by layer."""
+    dev = resolve_device(device)
+    params: Params = {}
+    for l, (fan_in, fan_out) in enumerate(spec.layer_dims()):
+        w = torch.randn(fan_in, fan_out, generator=generator, device=dev)
+        params[f"lin{l}"] = {"w": w * (2.0 / fan_in) ** 0.5,
+                             "b": torch.zeros(fan_out, device=dev)}
+    return params
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:

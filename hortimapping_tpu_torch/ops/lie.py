@@ -2,9 +2,10 @@
 
 Counterpart of `hortimapping_tpu/ops/lie.py`. Tangents are ordered
 (translation, rotation[, log scale]) with a LEFT perturbation, so the pose
-update is ``T <- exp(delta) @ T``. `exp_sim3_ref` keeps the reference's
-quirk: inside the theta > eps branch the c*I term of the translation
-Jacobian is zeroed for every s <= 1e-8, not only at s = 0.
+update is ``T <- exp(delta) @ T``. `exp_sim3` is the exact exponential;
+`exp_sim3_ref`, the LM's update, keeps the reference's quirk: inside the
+theta > eps branch the c*I term of the translation Jacobian is zeroed for
+every s <= 1e-8, not only at s = 0.
 """
 
 from __future__ import annotations
@@ -68,6 +69,26 @@ def exp_se3(x: torch.Tensor) -> torch.Tensor:
     return _assemble(R, t)
 
 
+def exp_sim3(x: torch.Tensor) -> torch.Tensor:
+    """sim(3) -> Sim(3), the exact exponential: x = (v[3], w[3], s) -> 4x4
+    with the rotation block scaled by e^s; the translation through the
+    series V matrix of W + s I (branch-free where Strasdat's closed form
+    cancels in f32 near theta -> 0 and s -> 0)."""
+    v, w, s = x[..., :3], x[..., 3:6], x[..., 6]
+    theta = torch.linalg.norm(w, dim=-1)
+    small = theta < _EPS
+    theta_safe = torch.where(small, torch.ones_like(theta), theta)
+    t2 = theta_safe * theta_safe
+    A = torch.where(small, torch.ones_like(theta), torch.sin(theta) / theta_safe)
+    half_sin = torch.sin(theta / 2.0)
+    B = torch.where(small, torch.full_like(theta, 0.5), 2.0 * half_sin * half_sin / t2)
+    W = skew(w)
+    eye = _eye3(x)
+    R = eye + A[..., None, None] * W + B[..., None, None] * (W @ W)
+    t = (_v_matrix_series(W + s[..., None, None] * eye) @ v[..., None])[..., 0]
+    return _assemble(torch.exp(s)[..., None, None] * R, t)
+
+
 def exp_sim3_ref(x: torch.Tensor) -> torch.Tensor:
     """Reference-compatible sim(3) "exponential", quirk included (see the
     module docstring); the (e^s - 1)/s division keeps the reference's
@@ -122,7 +143,30 @@ def points_to_pose_jacobian_sim3(points: torch.Tensor) -> torch.Tensor:
     return torch.cat([eye, -skew(points), points[..., None]], dim=-1)
 
 
+def sim3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a Sim(3) matrix [[sR, t], [0, 1]]:
+    (sR)^-1 = (sR)^T / s^2, s^2 the squared norm of the first row of sR."""
+    A = T[..., :3, :3]
+    t = T[..., :3, 3]
+    s2 = torch.sum(A[..., 0, :] * A[..., 0, :], dim=-1)[..., None, None]
+    A_inv = A.transpose(-1, -2) / s2
+    t_inv = -torch.einsum("...ij,...j->...i", A_inv, t)
+    return _assemble(A_inv, t_inv)
+
+
 def rotation_matrix_to_angle(R: torch.Tensor) -> torch.Tensor:
     """acos((tr - 1)/2), argument clipped to [-1, 1]."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+
+
+def axis_angle_to_rotation_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula; the identity below an angle of 1e-8."""
+    angle = torch.linalg.norm(axis_angle, dim=-1)
+    small = angle < _EPS
+    axis = axis_angle / torch.where(small, torch.ones_like(angle), angle)[..., None]
+    S = skew(axis)
+    eye = _eye3(axis_angle)
+    R = (eye + torch.sin(angle)[..., None, None] * S
+         + (1.0 - torch.cos(angle))[..., None, None] * (S @ S))
+    return torch.where(small[..., None, None], eye, R)

@@ -1,18 +1,27 @@
-"""Synthetic fruit world, numpy half (counterpart of the host-side part of
-`hortimapping_tpu/tools/synthetic.py`): the analytic ellipsoid category the
-synthetic decoders were trained on, and the scene generator the bench batch
+"""Synthetic fruit world (counterpart of `hortimapping_tpu/tools/synthetic.py`):
+the analytic ellipsoid category the synthetic decoders are trained on, the
+trainer that fits a decoder to it, and the scene generator the bench batch
 is built from. Radii = base_radius * exp(P @ code) for a fixed random
-projection P.
+projection P, so code 0 is a sphere of `base_radius` and codes within +-1
+deform it by ~+-20 %.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from hortimapping_tpu_torch.models.decoder import DecoderSpec
+from hortimapping_tpu_torch.device import resolve_device
+from hortimapping_tpu_torch.models.decoder import (
+    DecoderSpec,
+    Params,
+    decoder_apply,
+    init_decoder_params,
+)
 from hortimapping_tpu_torch.optim.state import FruitObservations
 
 
@@ -26,6 +35,102 @@ class SyntheticCategory:
         rng = np.random.default_rng(1234)
         P = rng.normal(size=(3, self.spec.code_length)) / np.sqrt(self.spec.code_length)
         return (P * self.proj_scale).astype(np.float32)
+
+
+def ellipsoid_radii(code: torch.Tensor, proj: torch.Tensor, base_radius: float) -> torch.Tensor:
+    """Radii (..., 3) of the ellipsoid of each code (..., C)."""
+    return base_radius * torch.exp((proj @ code[..., None])[..., 0])
+
+
+def ellipsoid_sdf(x: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
+    """Approximate ellipsoid SDF k0 (k0 - 1) / k1 of points x (..., 3) under
+    radii broadcast against them; exact on spheres, a small relative error
+    at mild aspect ratios (a training target)."""
+    k0 = torch.linalg.norm(x / radii, dim=-1)
+    k1 = torch.linalg.norm(x / (radii * radii), dim=-1)
+    k1 = torch.where(k1 == 0.0, torch.ones_like(k1), k1)
+    return torch.where(k0 == 0.0, -radii.amin(dim=-1), k0 * (k0 - 1.0) / k1)
+
+
+def _draw_synthetic_step(generator: torch.Generator, batch: int, code_length: int,
+                         extent: float, device: torch.device):
+    """One step's draws, in the JAX trainer's order: codes ~ N(0, 0.5^2)
+    (batch, C), points uniform in the box of half-width `extent` (batch, 3),
+    unnormalised surface directions (batch, 3) and relative radial noise ~
+    N(0, 0.01^2) (batch, 1)."""
+    codes = torch.randn(batch, code_length, generator=generator, device=device) * 0.5
+    x_uni = torch.rand(batch, 3, generator=generator, device=device) * (2.0 * extent) - extent
+    dirs = torch.randn(batch, 3, generator=generator, device=device)
+    noise = torch.randn(batch, 1, generator=generator, device=device) * 0.01
+    return codes, x_uni, dirs, noise
+
+
+def synthetic_batch(generator: torch.Generator, cat: SyntheticCategory, proj: torch.Tensor,
+                    batch: int, sample_extent: float = 2.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch drawn as the trainer draws it, on `proj`'s device: inputs
+    (batch, C + 3) = code | xyz and their clamped analytic SDF (batch,).
+    Even rows are uniform within `sample_extent * base_radius` of the
+    origin, odd rows near the surface."""
+    dev = proj.device
+    codes, x_uni, dirs, noise = _draw_synthetic_step(
+        generator, batch, cat.spec.code_length, sample_extent * cat.base_radius, dev)
+    radii = ellipsoid_radii(codes, proj, cat.base_radius)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    even = (torch.arange(batch, device=dev) % 2 == 0)[:, None]
+    x = torch.where(even, x_uni, dirs * radii * (1.0 + noise))
+    clamp = cat.spec.clamping_distance
+    return torch.cat([codes, x], dim=-1), ellipsoid_sdf(x, radii).clamp(-clamp, clamp)
+
+
+def warmup_cosine_lr(step: int, peak: float, warmup: int, total: int, end: float) -> float:
+    """optax's `warmup_cosine_decay_schedule(0, peak, warmup, total, end)` at
+    `step`: linear from 0 over `warmup` steps, then a cosine from `peak` to
+    `end` over the remaining `total - warmup`."""
+    if step < warmup:
+        return (0.0 - peak) * (1.0 - step / warmup) + peak
+    alpha = end / peak
+    t = min(step - warmup, total - warmup)
+    return peak * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t / (total - warmup))) + alpha)
+
+
+def train_synthetic_decoder(
+    cat: SyntheticCategory,
+    seed: int = 0,
+    steps: int = 1500,
+    batch: int = 4096,
+    lr: float = 1e-3,
+    sample_extent: float = 2.5,
+    device: str | torch.device = "cuda",
+) -> Tuple[Params, np.ndarray]:
+    """Fit the decoder to the analytic ellipsoid family: mean squared error
+    against the clamped SDF of `synthetic_batch`es, gradients clipped to
+    global norm 1 (optax's formula: g / ||g|| above 1, no epsilon), Adam
+    under a warmup-cosine lr whose first step is 0 (it fills the moments and
+    moves nothing). Returns (params, projection)."""
+    dev = resolve_device(device)
+    spec = cat.spec
+    proj_np = cat.projection()
+    proj = torch.as_tensor(proj_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_decoder_params(spec, gen, dev)
+    leaves = [p[k].requires_grad_(True) for p in params.values() for k in ("w", "b")]
+    opt = torch.optim.Adam(leaves, lr=0.0)
+    warmup = min(200, steps // 10)
+
+    for s in range(steps):
+        inputs, target = synthetic_batch(gen, cat, proj, batch, sample_extent)
+        pred = decoder_apply(params, spec, inputs)[..., 0]
+        loss = torch.mean((pred - target) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in leaves]
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        denom = torch.where(g_norm < 1.0, torch.ones_like(g_norm), g_norm)
+        for g in grads:
+            g.div_(denom)
+        opt.param_groups[0]["lr"] = warmup_cosine_lr(s, lr, warmup, steps, lr * 1e-2)
+        opt.step()
+    return {k: {kk: v.detach() for kk, v in p.items()} for k, p in params.items()}, proj_np
 
 
 def _ellipsoid_sdf_np(x: np.ndarray, radii: np.ndarray) -> np.ndarray:

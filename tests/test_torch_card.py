@@ -442,3 +442,69 @@ def test_served_batch_equals_packed_solve(cuda):
         assert g.iter_count == int(res.iter_count[i]) and g.failed == bool(res.failed[i])
         np.testing.assert_allclose(g.latent, res.latent[i].cpu().numpy(), atol=1e-5, rtol=0)
         np.testing.assert_allclose(g.T_ow, res.T_ow[i].cpu().numpy(), atol=1e-5, rtol=0)
+
+
+def _sphere_sdf_experiment(root, n_scenes=4, n=2048, width=64, code_length=8, seed=0):
+    """SdfSamples of spheres (radius 5-8 cm, points around the surface) and
+    an experiment of 3 x `width` layers taking all scenes in one step."""
+    import json
+    import os
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "data", "SdfSamples"))
+    for s in range(n_scenes):
+        r = 0.05 + 0.03 * rng.random()
+        pts = rng.normal(size=(n, 3))
+        pts *= r * (1.0 + rng.normal(size=(n, 1)) * 0.3) / np.linalg.norm(pts, axis=-1,
+                                                                           keepdims=True)
+        sdf = np.linalg.norm(pts, axis=-1) - r
+        samples = np.concatenate([pts, sdf[:, None]], axis=-1).astype(np.float32)
+        np.savez(os.path.join(root, "data", "SdfSamples", f"sphere_{s:02d}.npz"),
+                 pos=samples[sdf >= 0], neg=samples[sdf < 0])
+    with open(os.path.join(root, "specs.json"), "w") as f:
+        json.dump({"DataSource": os.path.join(root, "data"), "CodeLength": code_length,
+                   "NetworkSpecs": {"dims": [width] * 3, "latent_in": [1]},
+                   "ClampingDistance": 0.1, "ScenesPerBatch": n_scenes,
+                   "SamplesPerScene": 1024,
+                   "LearningRateSchedule": [{"Initial": 2e-3}, {"Initial": 5e-3}]}, f)
+    return str(root)
+
+
+@pytest.mark.cuda
+def test_train_steps_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """Two DeepSDF training steps (3 x 64, C = 8, 4 scenes of 1024 samples)
+    on the card against the same steps on the CPU: the same init and the
+    CPU generator's draws replayed on the card. f32 on both (TF32 pinned
+    off): the losses agree to 1e-6 (the predictions differ by f32 rounding,
+    ~2e-7; TF32's 10-bit mantissa would move them ~1e-3), the parameters to
+    2e-5, a hundredth of the step's lr (Adam's first steps are ~lr * g /
+    |g|; a gradient near zero moves its weight by up to lr * dg / eps)."""
+    from hortimapping_tpu_torch.train import deepsdf
+
+    exp_cpu = _sphere_sdf_experiment(tmp_path / "cpu")
+    exp_card = _sphere_sdf_experiment(tmp_path / "card")
+    spec = DecoderSpec(code_length=8, dims=(64,) * 3, latent_in=(1,))
+    init = random_decoder_np(spec, 5)
+    monkeypatch.setattr(deepsdf, "init_decoder_params",
+                        lambda spec_, g, dev: params_from_jax(init, dev))
+    draws, orig = [], deepsdf._draw_step
+
+    def record(*a):
+        draws.append(orig(*a))
+        return draws[-1]
+
+    monkeypatch.setattr(deepsdf, "_draw_step", record)
+    quiet = dict(log=lambda *a: None, save=False, num_epochs=2)
+    res_cpu = deepsdf.train_deepsdf(exp_cpu, device="cpu", **quiet)
+    replay = iter(draws)
+    monkeypatch.setattr(deepsdf, "_draw_step",
+                        lambda *a: tuple(t.to(cuda) for t in next(replay)))
+    res_card = deepsdf.train_deepsdf(exp_card, device=cuda, **quiet)
+    assert next(replay, None) is None and len(draws) == 2
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert np.abs(res_card.losses - res_cpu.losses).max() <= 1e-6
+    for name in res_cpu.params:
+        for k in ("w", "b"):
+            d = (res_card.params[name][k].cpu() - res_cpu.params[name][k]).abs().max()
+            assert float(d) <= 2e-5, (name, k, float(d))
+    assert np.abs(res_card.latent_codes - res_cpu.latent_codes).max() <= 5e-5

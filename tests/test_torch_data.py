@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from hortimapping_tpu import native as jnative
+from hortimapping_tpu.data import kitti as jkitti
 from hortimapping_tpu.data import mesh as jmesh
 from hortimapping_tpu.data import ply as jply
 from hortimapping_tpu.data import preprocess as jpre
@@ -21,6 +22,7 @@ from hortimapping_tpu.utils import misc as jmisc
 from hortimapping_tpu.vis import color_table as jcolor_table
 from hortimapping_tpu_torch import native as tnative
 from hortimapping_tpu_torch.data import imageio
+from hortimapping_tpu_torch.data import kitti as tkitti
 from hortimapping_tpu_torch.data import mesh as tmesh
 from hortimapping_tpu_torch.data import ply as tply
 from hortimapping_tpu_torch.data import preprocess as tpre
@@ -428,3 +430,32 @@ def test_seed_timer_trace_and_vis(tmp_path, monkeypatch):
     assert color_table == jcolor_table
     vis = make_visualizer(True)
     assert isinstance(vis, StubVisualizer) and not vis.interactive and not vis.stop()
+
+
+# ---------------------------------------------------------------- KITTI
+
+def test_kitti_readers_match_jax(tmp_path):
+    """Calibration lines (12 values as 3 x 4, other counts flat, lines
+    without a colon or with words skipped) and a velodyne scan, equal to the
+    JAX package's readers."""
+    rng = np.random.default_rng(11)
+    P0 = rng.normal(size=12)
+    calib = tmp_path / "calib.txt"
+    calib.write_text(
+        "P0: " + " ".join(f"{v:.12e}" for v in P0) + "\n"
+        "R0_rect: 1 0 0 0 1 0 0 0 1\n"
+        "calib_time: 09-Jan-2012 13:57:47\n"
+        "no colon on this line\n"
+        "Tr_velo_to_cam: " + " ".join(str(v) for v in range(12)) + "\n")
+    got, want = tkitti.read_calib_file(str(calib)), jkitti.read_calib_file(str(calib))
+    assert sorted(got) == sorted(want) == ["P0", "R0_rect", "Tr_velo_to_cam"]
+    for k in want:
+        assert got[k].shape == want[k].shape and np.array_equal(got[k], want[k]), k
+    assert got["P0"].shape == (3, 4) and got["R0_rect"].shape == (9,)
+
+    scan = rng.normal(size=(1000, 4)).astype(np.float32)
+    scan.tofile(tmp_path / "000000.bin")
+    cloud = tkitti.read_velodyne_bin(str(tmp_path / "000000.bin"))
+    assert isinstance(cloud, tmesh.PointCloud) and cloud.colors is None
+    assert np.array_equal(cloud.points, scan[:, :3])
+    assert np.array_equal(cloud.points, jkitti.read_velodyne_bin(str(tmp_path / "000000.bin")).points)

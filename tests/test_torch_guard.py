@@ -1,8 +1,8 @@
 """The port stands alone: no file of `hortimapping_tpu_torch/` imports JAX,
-the JAX package, OpenCV, PIL or click, nor wandb at module level (it is
-optional: the W&B summary imports it where it logs), importing it loads
-none of them, and its entry points refuse to run on a missing card unless
-asked for the CPU."""
+the JAX package, optax, Orbax, OpenCV, PIL or click, nor wandb at module
+level (it is optional: the W&B summary imports it where it logs), importing
+it loads none of them, and its entry points refuse to run on a missing card
+unless asked for the CPU."""
 
 import os
 import re
@@ -20,7 +20,7 @@ PKG = os.path.join(ROOT, "hortimapping_tpu_torch")
 JAX_PKG = re.compile(r"\bhortimapping_tpu\b(?!_torch)")
 JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
 # the card's machine has none of these
-HOST_ONLY_IMPORT = re.compile(r"^\s*(import|from)\s+(cv2|PIL|click)\b", re.M)
+HOST_ONLY_IMPORT = re.compile(r"^\s*(import|from)\s+(cv2|PIL|click|optax|orbax)\b", re.M)
 # optional everywhere: never imported when a module is
 MODULE_LEVEL_WANDB = re.compile(r"^(import|from)\s+wandb\b", re.M)
 
@@ -49,6 +49,8 @@ def test_sources_do_not_import_jax_or_the_jax_package():
 
 
 def test_name_pattern_tells_the_packages_apart():
+    assert HOST_ONLY_IMPORT.search("import optax") and HOST_ONLY_IMPORT.search(
+        "    import orbax.checkpoint as ocp")
     assert JAX_PKG.search("from hortimapping_tpu.ops import lie")
     assert JAX_PKG.search("import hortimapping_tpu")
     assert not JAX_PKG.search("from hortimapping_tpu_torch.ops import lie")
@@ -66,8 +68,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import hortimapping_tpu_torch.data.rgbd, hortimapping_tpu_torch.data.challenge\n"
         "import hortimapping_tpu_torch.metrics.precision_recall\n"
         "import hortimapping_tpu_torch.pipeline.greenhouse, hortimapping_tpu_torch.serve\n"
+        "import hortimapping_tpu_torch.train.deepsdf, hortimapping_tpu_torch.tools.make_assets\n"
+        "import hortimapping_tpu_torch.data.kitti\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click', 'wandb')]\n"
+        "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click', 'wandb', 'optax', 'orbax')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -169,3 +173,38 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
             gen(str(tmp_path / gen.__name__), assets, n_fruits=1, n_frames=1)
         assert not os.path.exists(tmp_path / gen.__name__)   # refused before writing
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_entry_points_raise_without_a_card(tmp_path):
+    """The trainer, the asset tool and the `.pth` load refuse a missing
+    card before they read or write anything, unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from hortimapping_tpu_torch.models.decoder import DecoderSpec, init_decoder_params
+    from hortimapping_tpu_torch.models.workspace import config_decoder, convert_torch_checkpoint
+    from hortimapping_tpu_torch.tools import make_assets, synthetic
+    from hortimapping_tpu_torch.train import deepsdf
+
+    exp = tmp_path / "exp"
+    (exp / "ModelParameters").mkdir(parents=True)
+    (exp / "specs.json").write_text('{"CodeLength": 4, "NetworkSpecs": {"dims": [8, 8]}}')
+    torch.save({"lin0.weight": torch.zeros(8, 7)}, exp / "ModelParameters" / "latest.pth")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        config_decoder(str(exp))
+    assert not (exp / "native").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert_torch_checkpoint(str(exp / "ModelParameters" / "latest.pth"), DecoderSpec())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepsdf.train_deepsdf(str(exp))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepsdf.main(["-e", str(exp)])
+    assert not (exp / "native").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_assets.make_category("synthetic_small_8", str(tmp_path / "assets"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_assets.main(["--out", str(tmp_path / "assets")])
+    assert not (tmp_path / "assets").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.train_synthetic_decoder(synthetic.SyntheticCategory(DecoderSpec()), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_decoder_params(DecoderSpec(), torch.Generator())

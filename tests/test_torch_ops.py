@@ -86,6 +86,47 @@ def test_pose_jacobians_and_angle_match_jax():
            jlie.rotation_matrix_to_angle(jnp.asarray(R)), 1e-5)
 
 
+def test_exp_sim3_matches_jax_and_the_matrix_exponential():
+    """The exact Sim(3) exponential, small-angle and zero-scale branches
+    included (`_tangents`), against JAX and against scipy's expm."""
+    from scipy.linalg import expm
+
+    x = _tangents(5)
+    x[6] = [0.1, 0.2, -0.1, 1e-6, 0.0, 0.0, 1e-6]      # both tiny
+    got = tlie.exp_sim3(_t(x)).numpy()
+    _close(got, jlie.exp_sim3(jnp.asarray(x)), 1e-6)
+    for i in range(8):
+        xi = np.zeros((4, 4))
+        xi[:3, :3] = tlie.skew(_t(x[i, 3:6]).double()).numpy() + x[i, 6] * np.eye(3)
+        xi[:3, 3] = x[i, :3]
+        np.testing.assert_allclose(got[i], expm(xi), atol=2e-6)
+    # unlike exp_sim3_ref, a negative scale step keeps the c*I term
+    assert np.abs(got[4] - tlie.exp_sim3_ref(_t(x[4:5])).numpy()[0]).max() > 1e-3
+
+
+def test_sim3_inverse_matches_jax():
+    T = np.asarray(jlie.exp_sim3(jnp.asarray(_tangents(6))))
+    got = tlie.sim3_inverse(_t(T)).numpy()
+    _close(got, jlie.sim3_inverse(jnp.asarray(T)), 1e-6)
+    eye = np.broadcast_to(np.eye(4, dtype=np.float32), T.shape)
+    np.testing.assert_allclose(got @ T, eye, atol=1e-5)
+
+
+def test_axis_angle_to_rotation_matrix_matches_jax():
+    rng = np.random.default_rng(7)
+    aa = (rng.normal(size=(20, 3)) * 0.8).astype(np.float32)
+    aa[0] = 0.0                          # the identity branch
+    aa[1] = [1e-9, 0.0, 0.0]             # below eps: the identity too
+    aa[2] = [2e-8, 0.0, 0.0]             # just above eps: Rodrigues
+    got = tlie.axis_angle_to_rotation_matrix(_t(aa)).numpy()
+    _close(got, jlie.axis_angle_to_rotation_matrix(jnp.asarray(aa)), 1e-6)
+    assert np.array_equal(got[0], np.eye(3, dtype=np.float32))
+    assert np.array_equal(got[1], np.eye(3, dtype=np.float32))
+    # round trip through the angle
+    _close(tlie.rotation_matrix_to_angle(_t(got[3:])).numpy(),
+           np.linalg.norm(aa[3:], axis=-1), 1e-5)
+
+
 def test_occupancy_and_huber_match_jax():
     s = np.linspace(-0.05, 0.05, 101).astype(np.float32)
     _close(tsdf.sdf_to_occupancy(_t(s), 0.01).numpy(), jsdf.sdf_to_occupancy(jnp.asarray(s), 0.01), 1e-7)
