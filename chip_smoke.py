@@ -105,16 +105,41 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      (B4, counted over the path), B4 against its plain version on that
      decoder, and two steps of a small decoder on the card held to the same
      steps on the CPU (replayed draws; TF32 off);
- 15. the asset build and the torch checkpoint: `make_category` of
+ 15. the interactive wild path: a row of 8 fruits written as phase 9 writes
+     its row (50 frames of 1280x720, seed 7); `run_wild_completion` on
+     configs/wild_pepper_tpu.yaml with an interactive visualizer (a
+     `VisualizerCore` over a renderer that presses SPACE whenever the core
+     blocks and N on the fourth fruit, no pause): the retrieval warm start
+     of the row (B3), each fruit's traced solve alone (B1, B2 on one lane)
+     and every iteration's mesh replayed (B4 on one code), ms a fruit of
+     the solve and of the replay, all four launch counts, the mesh updates
+     (the replayed iterations plus the valid fruits), each trajectory's
+     last entry equal to its result, the skipped fruit's 0 iterations; B1
+     (1 x 2000 rows), B2 (B=1), B3 and B4 (one code) against their plain
+     versions on the run's own observations; its functional gate (plain
+     versions, mean CD over the fruits valid in both within 0.3 mm);
+ 16. the compacted render paths (`fused_render: false`, `jac_cap: 0`,
+     `fwd_cap: 0`, `fwd_bf16` off and on) at the trust-region shape (B=8
+     F=5 R=300 M=20) and the bench fine shape (B=32 F=10 R=240 M=22): the
+     render residuals and the LM normal equations held to the same route
+     with plain versions, and to the dense unfused route wherever the math
+     is the dense route's (the fused-kernel gate), the band's and the
+     forward's overflow, a second run bit-equal, B1 on the compacted band
+     rows and B3 on the forward rows against their plain versions, ms per
+     LM iteration of the dense unfused, compacted and fused routes; the
+     bench path and a B=8 solve on the compacted route (B2 never launched),
+     the solve within 0.3 mm of its plain versions;
+ 17. the asset build and the torch checkpoint: `make_category` of
      synthetic_pepper_32 (12000 steps x 8192 rows, cut and the cut printed if
      the script would pass 1000 s) timed, its SDF error on 65536 held-out
      points within 1.5x the shipped decoder's; the shipped decoder written as
      the reference's weight-normed `.pth` files and loaded on the card, its
      SDF within 1e-6 of the native load's;
- 16. one JSON line of kernel records (the four kernels at their greenhouse
+ 18. one JSON line of kernel records (the four kernels at their greenhouse
      shapes, then each kernel on the greenhouse-from-disk runs and the
-     served batches, and B4 on the trained decoder), then the JSON result
-     line.
+     served batches, B4 on the trained decoder, the four at the interactive
+     path's shapes and B1 and B3 on the compacted rows), then the JSON
+     result line.
 With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
 challenge run, one lab multi-frame run, one greenhouse-from-disk run, one
 served burst and one training epoch are traced by torch.profiler
@@ -165,6 +190,8 @@ LAB_SINGLE_FRUITS = 4          # fruits of the single-frame run (one lane a fram
 BERRY_FRUITS = 8
 BERRY_FRAMES = 10              # cut from lab_berry.yaml's frame_per_fruit 50: its n_frame is 10
 N_PATH_GATE = 8                # fruits of the challenge and lab functional gates
+INTERACTIVE_FRUITS = 8         # the interactive wild path's row
+INTERACTIVE_SKIP = 3           # the fruit (phase 1's order) on which the renderer presses N
 GREENHOUSE_SINGLE_YAML = "cka_pepper_single_tpu.yaml"
 GH_DIRS = 8                    # CKA-layout data dirs of the greenhouse path (seeds 9-16)
 GH_FRUITS_PER_DIR = 4          # every fruit stays in view of the generator's sweep
@@ -177,7 +204,7 @@ GH_MEMORY = "greenhouse in memory"   # the path of the kernels line's first four
 TRAIN_SCENES = 256             # SdfSamples scenes of the training path (~134 MB)
 TRAIN_SAMPLES = 16384          # samples of each sign a scene
 TRAIN_EPOCHS = 20              # 4 steps an epoch at ScenesPerBatch 64: 80 steps
-SCRIPT_BUDGET_S = 1000         # phase 15 cuts the asset build's steps to end the script by then
+SCRIPT_BUDGET_S = 1000         # phase 17 cuts the asset build's steps to end the script by then
 HELD_OUT = 65536               # held-out points of the built decoder's SDF error
 KERNEL_SOURCES = {             # kernel: (its source, the TPU kernel it replaces)
     "mlp_fwd_grad": ("hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
@@ -325,12 +352,12 @@ def bound(nbytes: float, flops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None):
+def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None, frozen=(5, 17)):
     """B1 in f32 vs its plain version in the form the LM launches it: inputs
     [lanes, rows_per_lane, C+3] (one code of the latent table a lane, points
-    at fruit scale; or the rows `x` a path gives it) with two frozen lanes;
-    timed, with its bound over the active lanes' rows, and beside the same
-    rows as one flat launch without a mask."""
+    at fruit scale; or the rows `x` a path gives it) with the lanes `frozen`
+    (mod lanes) frozen; timed, with its bound over the active lanes' rows,
+    and beside the same rows as one flat launch without a mask."""
     import torch
 
     from hortimapping_tpu_torch.ops import mlp_kernels
@@ -342,7 +369,7 @@ def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None):
         x = torch.cat([codes[:, None].expand(lanes, rows_per_lane, codes.shape[1]), xyz],
                       dim=-1).contiguous()
     active = torch.ones(lanes, dtype=torch.bool, device=dev)
-    active[[5, 17 % lanes]] = False  # frozen lanes exercise the skip
+    active[[i % lanes for i in frozen]] = False  # frozen lanes exercise the skip
     s_k, g_k = mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active)
     s_p, g_p = mlp_kernels.mlp_sdf_and_input_grad_plain(pk32, x, active)
     s_2, g_2 = mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active)
@@ -371,7 +398,7 @@ def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None):
     blocks = int(active.sum()) * per_lane
     flat_blocks = -(-lanes * rows_per_lane // (64 * mlp_kernels.CLUSTER)) * mlp_kernels.CLUSTER
     print(f"B1 mlp_fwd_grad vs plain, {phase} SDF term: {lanes} lanes x {rows_per_lane} rows "
-          f"f32, 2 frozen | max|d sdf| {err_s:.3g} max|d grad| {err_g:.3g} (of {g_scale:.3g}), "
+          f"f32, {int((~active).sum())} frozen | max|d sdf| {err_s:.3g} max|d grad| {err_g:.3g} (of {g_scale:.3g}), "
           f"frozen lanes zero | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; {blocks} active "
           f"blocks of {per_lane * lanes}, {blocks / wave:.2f} waves of {wave}), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, f32 CUDA-core peak) | the "
@@ -383,11 +410,11 @@ def check_mlp(phase, pk32, table, lanes, rows_per_lane, dev, x=None):
 
 
 def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
-                 cube_radius=CUBE_RADIUS):
+                 cube_radius=CUBE_RADIUS, frozen=(5, 17)):
     """B2 vs its plain version at one LM phase's render shape (its
-    subsampled observations and config, the path's cube radius) with two
-    frozen lanes: bf16 under the fused-kernel gate, and a small f32 slice
-    under the tight one; timed, with its bound."""
+    subsampled observations and config, the path's cube radius) with the
+    lanes `frozen` (mod B) frozen: bf16 under the fused-kernel gate, and a
+    small f32 slice under the tight one; timed, with its bound."""
     import torch
 
     from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
@@ -400,7 +427,7 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
     ray_valid = sub_obs.ray_valid & sub_obs.frame_valid[..., None]
     B = latent.shape[0]
     lane_active = torch.ones(B, dtype=torch.bool, device=dev)
-    lane_active[[5, 17 % B]] = False  # frozen lanes exercise the skip
+    lane_active[[i % B for i in frozen]] = False  # frozen lanes exercise the skip
     rkw = dict(pose_dim=sub_cfg.pose_dim, scale_on=sub_cfg.scale_on,
                log_occ_on=sub_cfg.log_sdf_occ, occ_cutoff=sub_cfg.occ_cutoff_m,
                occlusion_on=sub_cfg.occlusion_on, occlusion_th=0.03, min_grad_th=1e-6)
@@ -413,7 +440,7 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
     assert all(torch.equal(g, a) for g, a in zip(got, again)), (phase, "B2 differs between launches")
     for t in got:
         assert bool(torch.isfinite(t).all())
-    assert float(got[2][~lane_active].abs().max()) == 0.0
+    assert float(got[2][~lane_active].abs().sum()) == 0.0
     gates = render_gates(got, want, lane_active, sub_cfg.pose_dim)
     tol = RENDER_TOL["bf16"]
     assert all(gates[k] <= tol[k] for k in tol), (phase, gates, tol)
@@ -823,6 +850,33 @@ def mean_cd_mm(meshes, gts, dev) -> float:
                           for m, gt in zip(meshes, gts)])) * 1e3
 
 
+def write_wild_row(scene, spec, deepsdf_dir, n_fruits, size, n_frames, dev):
+    """A BUP20-like row of `n_fruits` fruits written to `scene` by the port's
+    generator: the fruits drawn as make_demo_data.main draws them (seed
+    WILD_SEED) at its 0.12 m spacing, a camera driving along the row
+    WILD_DISTANCE from it. Returns (bytes written, seconds, the GT surface
+    points of each fruit)."""
+    import numpy as np
+
+    from hortimapping_tpu_torch.tools import make_demo_data as gen
+
+    W, H = size
+    cat, base_radius = gen.category(deepsdf_dir)
+    proj = cat.projection()
+    T_wos, codes = gen.draw_fruits(np.random.default_rng(WILD_SEED), n_fruits, spec.code_length)
+    x_end = 0.12 * (n_fruits - 1) / 2
+    t0 = time.perf_counter()
+    nbytes = gen.write_scene(scene, T_wos, codes, proj, base_radius,
+                             gen.row_poses(n_frames, -x_end, x_end, WILD_DISTANCE),
+                             gen.intrinsics(W, H), W, H, wall_half=x_end + 0.6, device=dev)
+    render_s = time.perf_counter() - t0
+    dirs = np.random.default_rng(1).normal(size=(4096, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    gts = [((dirs * base_radius * np.exp(proj @ code)) @ T[:3, :3].T + T[:3, 3])
+           .astype(np.float32) for T, code in zip(T_wos, codes)]
+    return nbytes, render_s, gts
+
+
 def wild_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=N_FRUITS,
               size=WILD_SIZE, n_frames=WILD_FRAMES, reps=3,
               deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32")):
@@ -846,7 +900,6 @@ def wild_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=
     from hortimapping_tpu_torch.optim.state import stack_observations
     from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
     from hortimapping_tpu_torch.pipeline import wild
-    from hortimapping_tpu_torch.tools import make_demo_data as gen
     from hortimapping_tpu_torch.utils.misc import set_random_seed
 
     t_phase = time.perf_counter()
@@ -863,21 +916,9 @@ def wild_path(params, spec, table, pk16, pk32, smi, dev, profile=None, n_fruits=
         cfg["data_dir"] = scene
         cfg["cam_info_path"] = os.path.join(scene, "cam_info.yaml")
 
-        # 1. the scene: fruits drawn as make_demo_data.main draws them, at
-        # its 0.12 m spacing, a camera driving along the row
-        cat, base_radius = gen.category(cfg["deepsdf_dir"])
-        proj = cat.projection()
-        T_wos, codes = gen.draw_fruits(np.random.default_rng(WILD_SEED), n_fruits, C)
-        x_end = 0.12 * (n_fruits - 1) / 2
-        t0 = time.perf_counter()
-        nbytes = gen.write_scene(scene, T_wos, codes, proj, base_radius,
-                                 gen.row_poses(n_frames, -x_end, x_end, WILD_DISTANCE),
-                                 gen.intrinsics(W, H), W, H, wall_half=x_end + 0.6, device=dev)
-        render_s = time.perf_counter() - t0
-        dirs = np.random.default_rng(1).normal(size=(4096, 3))
-        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-        gts = [((dirs * base_radius * np.exp(proj @ code)) @ T[:3, :3].T + T[:3, 3])
-               .astype(np.float32) for T, code in zip(T_wos, codes)]
+        # 1. the scene
+        nbytes, render_s, gts = write_wild_row(scene, spec, cfg["deepsdf_dir"], n_fruits, size,
+                                               n_frames, dev)
 
         # phase 1 of the pipeline once, with its own split: the path's own
         # observation batch
@@ -1775,6 +1816,503 @@ def serve_path(params, spec, table, smi, dev, profile=None, n_batch=N_FRUITS, n_
     return counts.n
 
 
+def interactive_path(params, spec, table, pk16, pk32, smi, dev, n_fruits=INTERACTIVE_FRUITS,
+                     size=WILD_SIZE, n_frames=WILD_FRAMES, skip=INTERACTIVE_SKIP,
+                     deepsdf_dir=os.path.join(ROOT, "assets", "synthetic_pepper_32")):
+    """Phase 15, the interactive wild path: a BUP20-like row of `n_fruits`
+    fruits written as phase 9 writes its row, `run_wild_completion` with an
+    interactive visualizer (`VisualizerCore` over a renderer that presses
+    SPACE whenever the core blocks and N on fruit `skip`, no pause): the
+    retrieval warm start of the batch (B3), each fruit's traced solve alone
+    (B1, B2 on one lane) and every iteration's mesh replayed (B4 on one
+    code), timed by stage; its launch counts, mesh updates, trajectories and
+    the skipped fruit; B1, B2, B3 and B4 against their plain versions on
+    the run's own observations; the functional gate (the kernels against
+    their plain versions from three start latents: as given and one ulp up
+    and down; the mean of the three gaps in mean CD over the fruits valid
+    in both runs within 0.3 mm). Returns each kernel's check and the run's
+    launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
+    from hortimapping_tpu_torch.data.ply import read_mesh
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.pipeline import wild
+    from hortimapping_tpu_torch.vis.core import FakeRenderer, VisualizerCore
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", WILD_YAML))
+    cfg["deepsdf_dir"] = deepsdf_dir
+    cfg["vis"]["log_on"] = False
+    opt_cfg = JointOptConfig.from_dict(cfg)
+    assert opt_cfg.fused_bf16  # the render kernel runs bf16 here, as check_render holds it
+    C = spec.code_length
+    W, H = size
+    quiet = lambda *a: None
+
+    class KeyRenderer(FakeRenderer):
+        """Answers every block of the core: N on fruit `skip` (in phase 1's
+        order), SPACE otherwise."""
+
+        def __init__(self):
+            super().__init__()
+            self.core, self.fruit = None, -1
+
+        def clear(self):
+            super().clear()
+            self.fruit += 1
+
+        def poll(self):
+            super().poll()
+            if self.core is not None and self.core.block_vis:
+                if self.fruit == skip and not self.core.skip_flag:
+                    self.core.on_skip()
+                else:
+                    self.core.on_start_stop()
+
+    class CountingCore(VisualizerCore):
+        def __init__(self, renderer):
+            super().__init__(renderer, pause_time_s=0.0)
+            self.updates = 0
+
+        def update_mesh_pose(self, cano_mesh, transform, iteration):
+            self.updates += 1
+            super().update_mesh_pose(cano_mesh, transform, iteration)
+
+    def make_core():
+        r = KeyRenderer()
+        r.core = CountingCore(r)
+        return r.core
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_interactive_") as scene:
+        cfg["data_dir"] = scene
+        cfg["cam_info_path"] = os.path.join(scene, "cam_info.yaml")
+        _, render_s, gts = write_wild_row(scene, spec, cfg["deepsdf_dir"], n_fruits, size,
+                                          n_frames, dev)
+
+        seen = {"traced": [], "batch": None}
+        traced_solve, retrieval = wild.shape_pose_joint_opt_traced, wild.maybe_retrieval_init
+
+        def capture_traced(params_, spec_, cfg_, obs, lat0, T0, *a, **k):
+            out = traced_solve(params_, spec_, cfg_, obs, lat0, T0, *a, **k)
+            seen["traced"].append((obs, lat0, T0, *out))
+            return out
+
+        def capture_batch(params_, spec_, cfg_, table_, obs_b, lat0, T0, *a, **k):
+            seen["batch"] = (obs_b, T0)
+            return retrieval(params_, spec_, cfg_, table_, obs_b, lat0, T0, *a, **k)
+
+        stages = Stages(targets=(("load frames", wild, "load_frames"),
+                                 ("phase 1", wild, "prepare_submaps"),
+                                 ("retrieval", wild, "maybe_retrieval_init"),
+                                 ("traced solve", wild, "shape_pose_joint_opt_traced"),
+                                 ("replay meshing", MeshExtractor, "complete_mesh"),
+                                 ("phase 3 meshing", MeshExtractor, "complete_mesh_batch"),
+                                 ("writing", wild, "write_outputs")))
+
+        def run(core):
+            make = wild.make_visualizer
+            wild.make_visualizer = lambda *a, **k: core
+            try:
+                with stages.timing():
+                    t0 = time.perf_counter()
+                    results = wild.run_wild_completion(cfg, log=quiet, device=dev)
+                    torch.cuda.synchronize()
+                    stages.t["batch"] = time.perf_counter() - t0
+            finally:
+                wild.make_visualizer = make
+            return results
+
+        wild.shape_pose_joint_opt_traced = capture_traced
+        wild.maybe_retrieval_init = capture_batch
+        try:
+            core = make_core()
+            counts = LaunchCounts()
+            results = run(core)
+            counts.read()
+        finally:
+            wild.shape_pose_joint_opt_traced, wild.maybe_retrieval_init = traced_solve, retrieval
+        counts.require(LaunchCounts.ALL, "interactive wild path")
+        split = stages.split()
+        traced = seen["traced"]
+        n_solved = len(traced)
+        iters = sum(int(t[3].iter_count) for t in traced)
+        skipped = [r for r in results if r.reason == "optimization failed" and r.iter_count == 0]
+        n_prepared = seen["batch"][0].points_w.shape[0]
+        valid = sorted(r.name for r in results if r.valid)
+        for _, _, _, res, (lat_traj, T_traj) in traced:
+            assert lat_traj.shape[0] == T_traj.shape[0] == opt_cfg.max_iter
+            assert torch.equal(lat_traj[-1], res.latent) and torch.equal(T_traj[-1], res.T_ow)
+        assert len(skipped) == 1 and n_solved == n_prepared - 1, (len(skipped), n_solved)
+        assert core.updates == iters + len(valid), (core.updates, iters, len(valid))
+        ms_solve = split["traced solve"] * 1e3 / n_solved
+        ms_replay = split["replay meshing"] * 1e3 / n_solved
+        print(f"interactive wild path: configs/{WILD_YAML}, {n_fruits} fruits, {n_frames} frames "
+              f"{W}x{H} (rendered in {render_s:.1f} s), N pressed on fruit {skip} | run "
+              f"{stages.t['batch'] * 1e3:.1f} ms | {n_prepared} prepared, {n_solved} solved alone, "
+              f"{len(skipped)} skipped ({skipped[0].name}: iter_count {skipped[0].iter_count}, "
+              f"'{skipped[0].reason}') | traced solve {ms_solve:.1f} ms a fruit "
+              f"({ms_solve / opt_cfg.max_iter:.2f} ms an iteration, {opt_cfg.max_iter} "
+              f"iterations each), replay {ms_replay:.1f} ms a fruit ({split['replay meshing'] * 1e3 / max(iters, 1):.2f} ms a "
+              f"mesh: B4 + host meshing) | mesh updates {core.updates} = {iters} replayed "
+              f"iterations + {len(valid)} valid fruits | every trajectory's last entry equals "
+              f"its result | valid {len(valid)}/{n_fruits} | launches {counts} | {smi}",
+              flush=True)
+        print("interactive wild split (ms): " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                                        for k, v in split.items()), flush=True)
+        meshes_k = {n: read_mesh(os.path.join(scene, "submaps_complete", n)) for n in valid}
+
+        # the kernels on the run's own observations: the batch's retrieval
+        # scoring (B3), the first solved fruit's lane (B1, B2) and its code (B4)
+        obs_b, T0_b = seen["batch"]
+        P = opt_cfg.retrieval_score_pts
+        pts0 = obs_b.points_w @ T0_b[:, :3, :3].transpose(1, 2) + T0_b[:, None, :3, 3]
+        b3 = check_fwd("interactive wild retrieval", pk16 if opt_cfg.retrieval_score_bf16
+                       else pk32, table, pts0[:16, :P], obs_b.point_valid[:16, :P],
+                       spec.clamping_distance)
+        obs_i, lat_i, T_i, res_i, _ = traced[0]
+        _, o1, l1, t1 = lm._prepare(dev, opt_cfg, *lm._one_lane(obs_i, lat_i, T_i))
+        pts_o = o1.points_w @ t1[:, :3, :3].transpose(1, 2) + t1[:, None, :3, 3]
+        x = torch.cat([l1[:, None].expand(1, pts_o.shape[1], C), pts_o], dim=-1).contiguous()
+        b1 = check_mlp("interactive wild (one lane)", pk32, table, 1, pts_o.shape[1], dev, x=x,
+                       frozen=())
+        b2 = check_render("interactive wild (one lane)", pk16, pk32, o1, opt_cfg, l1, t1, dev,
+                          frozen=())
+        b4 = check_shared_latent("interactive wild (one code)", params, spec, pk16, pk32,
+                                 res_i.latent[None].contiguous(), dev, surface=False)
+
+        # functional gate. A fruit's traced solve is the reference's
+        # fixed-lambda single-phase schedule, chaotic on this row: a one-ulp
+        # change of one start latent moves the kernels' mean CD by 0.30 mm
+        # and the plain versions' by 0.11 mm (PERF.md). So the row runs
+        # from three starts (as given, one ulp up, one ulp down) with the
+        # kernels and with every kernel swapped for its plain version, and
+        # the mean of the three paired gaps (CD to the GT ellipsoids over the
+        # fruits valid in both runs of a pair) is held to 0.3 mm.
+        gt_of = lambda n: gts[int(n.split("_")[0]) - 2]
+
+        def cds(results):
+            return {r.name: mean_cd_mm([read_mesh(os.path.join(scene, "submaps_complete",
+                                                               r.name))], [gt_of(r.name)], dev)
+                    for r in results if r.valid}
+
+        def probed(step, plain):
+            """The row from start latents moved one ulp towards `step`
+            (None: as given), with the kernels or their plain versions."""
+            def moved(params_, spec_, cfg_, obs, lat0, *a, **k):
+                return traced_solve(params_, spec_, cfg_, obs,
+                                    torch.nextafter(lat0, torch.full_like(lat0, step)), *a, **k)
+
+            core_p = make_core()
+            make = wild.make_visualizer
+            wild.make_visualizer = lambda *a, **k: core_p
+            wild.shape_pose_joint_opt_traced = traced_solve if step is None else moved
+            try:
+                with plain_versions() if plain else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    results_p = wild.run_wild_completion(cfg, log=quiet, device=dev)
+                    torch.cuda.synchronize()
+                    t_run = time.perf_counter() - t0
+            finally:
+                wild.make_visualizer, wild.shape_pose_joint_opt_traced = make, traced_solve
+            return cds(results_p), t_run
+
+        cd_runs = {(None, False): ({n: mean_cd_mm([meshes_k[n]], [gt_of(n)], dev)
+                                    for n in valid}, stages.t["batch"])}
+        for step in (None, float("inf"), float("-inf")):
+            for plain in (False, True):
+                if (step, plain) not in cd_runs:
+                    cd_runs[(step, plain)] = probed(step, plain)
+        gaps, parts = [], []
+        for step, name in ((None, "as given"), (float("inf"), "+1 ulp"),
+                           (float("-inf"), "-1 ulp")):
+            (k, t_k), (p, t_p) = cd_runs[(step, False)], cd_runs[(step, True)]
+            both = sorted(set(k) & set(p))
+            assert both, (name, sorted(k), sorted(p))
+            cd_k, cd_p = (float(np.mean([c[n] for n in both])) for c in (k, p))
+            gaps.append(cd_k - cd_p)
+            parts.append(f"{name}: {len(both)} fruits valid in both (kernels {len(k)}, plain "
+                         f"{len(p)}), mean CD kernels {cd_k:.4f} vs plain {cd_p:.4f} mm, gap "
+                         f"{cd_k - cd_p:+.4f} (runs {t_k * 1e3:.0f} / {t_p * 1e3:.0f} ms)")
+        gap = float(np.mean(gaps))
+        print(f"interactive wild functional gate: " + " | ".join(parts) + f" | mean gap "
+              f"{gap:+.4f} mm (gate {CD_GATE_MM} mm) | interactive phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        assert abs(gap) <= CD_GATE_MM, (gaps, gap)
+    return dict(mlp_fwd_grad=b1, fused_render=b2, mlp_fwd=b3, mlp_shared_latent=b4,
+                launches=dict(counts.n))
+
+
+def check_rows(label, name, pk, x, kept):
+    """B1 ("mlp_fwd_grad") or B3 ("mlp_fwd") against its plain version on
+    the rows x [N, C+3] the compacted route launches it on (fill rows
+    included); its bound over the `kept` rows this run's data needs. f32:
+    max |d sdf| <= 1e-5 (B1: |d grad| <= 1e-4 of its largest); B3 in bf16:
+    the median and p99 gates of B3_BF16_GATE."""
+    import torch
+
+    from hortimapping_tpu_torch.ops import mlp_kernels
+
+    rows = x.shape[0]
+    if name == "mlp_fwd_grad":
+        run = lambda: mlp_kernels.mlp_sdf_and_input_grad(pk, x)
+        plain = lambda: mlp_kernels.mlp_sdf_and_input_grad_plain(pk, x)
+        (s_k, g_k), (s_p, g_p) = run(), plain()
+        torch.cuda.synchronize()
+        err_s, err_g = float((s_k - s_p).abs().max()), float((g_k - g_p).abs().max())
+        g_scale = float(g_p.abs().max())
+        assert err_s <= 1e-5 and err_g <= 1e-4 * g_scale, (label, err_s, err_g, g_scale)
+        err, gate_s = max(err_s, err_g), (f"max|d sdf| {err_s:.3g}, max|d grad| {err_g:.3g} "
+                                          f"(of {g_scale:.3g})")
+        fwd, bwd = chain_macs(pk)
+        flops = 2.0 * (fwd + bwd) * kept
+        nbytes = kept * (2 * pk.in_dim + 1) * 4 + weight_bytes(pk)
+        bound_ms, bound_by = bound(nbytes, flops, H100_F32_FLOPS)
+    else:
+        run = lambda: mlp_kernels.mlp_sdf(pk, x)
+        plain = lambda: mlp_kernels.mlp_sdf_plain(pk, x)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        err, med = float(d.max()), float(d.median())
+        p99 = float(torch.quantile(d[:1 << 24], 0.99))
+        if pk.bf16:
+            assert med <= B3_BF16_GATE["med"] and p99 <= B3_BF16_GATE["p99"], (label, med, p99)
+        else:
+            assert err <= 1e-5, (label, err)
+        gate_s = f"|d sdf| median {med:.3g} p99 {p99:.3g} max {err:.3g}"
+        flops, bound_ms, bound_by = fwd_bound(pk, kept, kept * pk.in_dim * 4, kept * 4)
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(plain, 2)
+    kernel = "B1 mlp_fwd_grad" if name == "mlp_fwd_grad" else "B3 mlp_fwd"
+    print(f"{kernel} vs plain, {label}: {rows} rows ({kept} kept) "
+          f"{'bf16' if pk.bf16 else 'f32'} | {gate_s} | kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s over the kept rows), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}) | no single PyTorch call", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+@contextlib.contextmanager
+def launched_rows(seen: dict):
+    """Within the block, the render route's B1 and B3 calls record their
+    weights and rows into `seen` (by kernel name)."""
+    from hortimapping_tpu_torch.ops import mlp_kernels
+
+    fwd, grad = mlp_kernels.mlp_sdf, mlp_kernels.mlp_sdf_and_input_grad
+
+    def fwd_rows(pk, x):
+        seen["mlp_fwd"] = (pk, x.reshape(-1, x.shape[-1]).contiguous())
+        return fwd(pk, x)
+
+    def grad_rows(pk, x, *a):
+        seen["mlp_fwd_grad"] = (pk, x.reshape(-1, x.shape[-1]).contiguous())
+        return grad(pk, x, *a)
+
+    mlp_kernels.mlp_sdf, mlp_kernels.mlp_sdf_and_input_grad = fwd_rows, grad_rows
+    try:
+        yield
+    finally:
+        mlp_kernels.mlp_sdf, mlp_kernels.mlp_sdf_and_input_grad = fwd, grad
+
+
+def compact_path(params, spec, table, smi, dev, shapes, bench, tr, voxels=VOXELS):
+    """Phase 16, the compacted render paths (`fused_render: false`,
+    `jac_cap: 0`, `fwd_cap: 0`: the auto budgets of 40 % and 55 % of a
+    frame's R x M samples), `fwd_bf16` off and on, at each of `shapes`
+    ((label, observations, config, codes, poses)): the render residuals and
+    the LM normal equations under the fused-kernel gate's metrics, held
+    against the same route with every kernel swapped for its plain version
+    (RENDER_TOL of the forward's type), and against the dense unfused route
+    (RENDER_TOL bf16) wherever the math is the dense route's (the band's
+    compaction alone; the f32 forward where neither budget dropped a
+    sample), printed where it is not; the band's and the forward's overflow,
+    a second run bit-equal, B1 on the compacted band rows and B3 on the
+    forward rows against their plain versions, and ms per LM iteration of
+    the dense unfused, compacted and fused routes. Then the
+    bench path (`bench`: config, observations, pose inits) and a B=8 solve
+    (`tr`: config, observations, pose inits, GT surfaces) on the compacted
+    route, each with its launch counts (B2 none), the solve against its
+    plain versions (mean CD within 0.3 mm). Returns the kernel checks and
+    launches for the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.ops.render import render_residuals
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.optim.state import init_state
+    from hortimapping_tpu_torch.optim.warmstart import retrieval_joint_opt, warmstart_solve
+
+    t_phase = time.perf_counter()
+
+    def render_term(cfg_, o, lat, T, stats=None):
+        packs = lm.make_packs(params, spec, cfg_)
+        T_oc, depths, radius = lm.render_geometry(cfg_, o, T, CUBE_RADIUS)
+        is_fg = torch.arange(cfg_.n_rays, device=dev) < cfg_.n_fg_pix
+        return render_residuals(params, spec, lat, o.rays, is_fg,
+                                o.ray_valid & o.frame_valid[..., None], o.depth_obs, T_oc, depths,
+                                radius, lm._render_config(cfg_, spec), None, packs.render,
+                                packs.fwd, stats=stats)
+
+    def fused_form(rr):
+        return rr.jac_d, rr.jac_m, torch.stack([rr.res_d, rr.res_m, rr.ray_ok.float()], -1)
+
+    def rel(a, b):
+        return max(float((x - y).norm() / y.norm().clamp_min(1e-30)) for x, y in zip(a, b))
+
+    checks = {}
+    fmt = lambda d: "{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items()) + "}"
+
+    def gate(label, what, tol, got, want, H_got, H_want, B, pose_dim):
+        """The fused-kernel gate's metrics of `got` against `want` (render
+        term, fused form) and of the LM normal equations; asserts `tol`
+        when given. Returns the line's text."""
+        g = render_gates(got, want, torch.ones(B, dtype=torch.bool, device=dev), pose_dim)
+        g["relH_lm"], g["relb_lm"] = rel(H_got[0], H_want[0]), rel(H_got[1], H_want[1])
+        if tol is not None:
+            lim = dict(tol, relH_lm=tol["relH"], relb_lm=tol["relb"])
+            assert all(g[k] <= lim[k] for k in lim), (label, what, g, lim)
+        return f"{what} {fmt(g)}{' (held)' if tol is not None else ' (not held: measured)'}"
+
+    for label, o, c, lat, T in shapes:
+        B, F, R = o.ray_valid.shape
+        dense = dataclasses.replace(c, fused_render=False)
+        fused = dataclasses.replace(c, fused_render=True)
+        s0 = init_state(lat, T)
+        it_ms = {}
+        for name, cfg_ in (("dense unfused", dense), ("fused", fused)):
+            packs = lm.make_packs(params, spec, cfg_)
+            it_ms[name] = cuda_ms(lambda: lm.lm_iteration(params, spec, cfg_, o, s0, CUBE_RADIUS,
+                                                          False, packs), 3)
+        normal_eq = lambda cfg_: lm.normal_equations(params, spec, cfg_, o, lat, T, s0.i,
+                                                     CUBE_RADIUS)[:2]
+        rr_d, ne_d = fused_form(render_term(dense, o, lat, T)), normal_eq(dense)
+        # the band's compaction alone (forward dense, f32): the dense route's
+        # math wherever the band fits its budget
+        band_only = dataclasses.replace(dense, jac_cap=0)
+        st = {}
+        rr_b = fused_form(render_term(band_only, o, lat, T, st))
+        fits = int(st["band_overflow"].sum()) == 0
+        print(f"compacted render, {label}: Jacobians on the band alone (jac_cap "
+              f"{band_only.jac_cap_resolved} a frame, forward dense f32), band overflow "
+              f"{int(st['band_overflow'].sum())} | vs dense unfused: "
+              + gate(label, "band", RENDER_TOL["bf16"] if fits else None, rr_b, rr_d,
+                     normal_eq(band_only), ne_d, B, c.pose_dim), flush=True)
+        for fwd_bf16 in (False, True):
+            mode = "bf16" if fwd_bf16 else "f32"
+            cc = dataclasses.replace(c, fused_render=False, jac_cap=0, fwd_cap=0,
+                                     fwd_bf16=fwd_bf16)
+            K, K1 = cc.jac_cap_resolved, cc.fwd_cap_resolved
+            stats, seen = {}, {}
+            with launched_rows(seen):
+                rr = render_term(cc, o, lat, T, stats)
+            again = render_term(cc, o, lat, T)
+            ne_c, ne_2 = normal_eq(cc), normal_eq(cc)
+            torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(rr, again))
+                    and all(torch.equal(a, b) for a, b in zip(ne_c, ne_2)))
+            assert same, (label, mode, "compacted route differs between runs")
+            with plain_versions():
+                rr_p, ne_p = render_term(cc, o, lat, T), normal_eq(cc)
+            band, over = stats["band"], stats["band_overflow"]
+            dropped = int(over.sum()) + int(stats["fwd_overflow"].sum())
+            text_p = gate(label, "kernels vs plain versions", RENDER_TOL[mode], fused_form(rr),
+                          fused_form(rr_p), ne_c, ne_p, B, c.pose_dim)
+            # against the dense f32 route the gate holds where the math is the
+            # same: an f32 forward and no sample dropped by either budget
+            text_d = gate(label, "vs dense unfused",
+                          RENDER_TOL["bf16"] if dropped == 0 and not fwd_bf16 else None,
+                          fused_form(rr), rr_d, ne_c, ne_d, B, c.pose_dim)
+            kept_band = int((band - over).sum())
+            kept_fwd = int((stats["in_radius"] - stats["fwd_overflow"]).sum())
+            packs = lm.make_packs(params, spec, cc)
+            it_ms[f"compacted {mode}"] = cuda_ms(
+                lambda: lm.lm_iteration(params, spec, cc, o, s0, CUBE_RADIUS, False, packs), 3)
+            print(f"compacted render, {label}: B={B} F={F} R={R} M={c.n_sample_on_ray}, forward "
+                  f"{mode}, jac_cap {K} / fwd_cap {K1} a frame (auto) | band {int(band.sum())} "
+                  f"samples, overflow {int(over.sum())} in {int((over > 0).sum())} of {B * F} "
+                  f"frames (largest frame band {int(band.max())}) | in-radius "
+                  f"{int(stats['in_radius'].sum())}, undecoded {int(stats['fwd_overflow'].sum())} "
+                  f"in {int((stats['fwd_overflow'] > 0).sum())} frames | two runs bit-equal | "
+                  f"{text_p} | {text_d}", flush=True)
+            pk1, x1 = seen["mlp_fwd_grad"]
+            pk3, x3 = seen["mlp_fwd"]
+            assert not pk1.bf16 and pk3.bf16 == fwd_bf16
+            checks[(label, "mlp_fwd", mode)] = check_rows(
+                f"{label} compacted forward rows", "mlp_fwd", pk3, x3, kept_fwd)
+            if not fwd_bf16:   # B1 runs f32 in both modes
+                checks[(label, "mlp_fwd_grad", mode)] = check_rows(
+                    f"{label} compacted band rows", "mlp_fwd_grad", pk1, x1, kept_band)
+        print(f"ms per LM iteration, {label} (B={B}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in it_ms.items()) + f" | {smi}", flush=True)
+
+    # the bench path on the compacted route (coarse-to-fine, auto budgets);
+    # its launches are those of the bench fine rows' records
+    b_cfg, b_obs, b_T0 = bench
+    launches = {}
+    for fwd_bf16 in (False, True):
+        mode = "bf16" if fwd_bf16 else "f32"
+        cc = dataclasses.replace(b_cfg, fused_render=False, jac_cap=0, fwd_cap=0,
+                                 fwd_bf16=fwd_bf16)
+        counts = LaunchCounts()
+        t0 = time.perf_counter()
+        res = retrieval_joint_opt(params, spec, cc, table, b_obs, b_T0, CUBE_RADIUS,
+                                  n_score_pts=128, n_scales=1, scale_min=1.0, scale_max=1.0,
+                                  score_bf16=True, device=dev)
+        torch.cuda.synchronize()
+        t_bench = time.perf_counter() - t0
+        counts.read()
+        counts.require(("mlp_fwd_grad", "mlp_fwd"), "compacted bench path")
+        assert counts.n["fused_render"] == 0, counts.n
+        assert not bool(res.failed.any()) and bool(torch.isfinite(res.latent).all())
+        launches[("bench fine", mode)] = dict(counts.n)
+        print(f"compacted bench path, forward {mode}: B={b_obs.points_w.shape[0]}, "
+              f"{t_bench * 1e3:.1f} ms (retrieval + c2f LM, no meshing), mean iters "
+              f"{float(res.iter_count.float().mean()):.2f} | launches {counts}", flush=True)
+
+    # a B=8 solve on the compacted route against its plain versions
+    t_cfg, t_obs, t_T0, t_gts = tr
+    mesher = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=CUBE_RADIUS, device=dev)
+    lat0 = table.mean(0, keepdim=True).expand(t_T0.shape[0], spec.code_length).contiguous()
+    for fwd_bf16 in (False, True):
+        cc = dataclasses.replace(t_cfg, fused_render=False, jac_cap=0, fwd_cap=0,
+                                 fwd_bf16=fwd_bf16)
+
+        def solve():
+            t0 = time.perf_counter()
+            r = warmstart_solve(params, spec, cc, table, t_obs, lat0, t_T0, CUBE_RADIUS,
+                                device=dev)
+            meshes = mesher.complete_mesh_batch(r.latent, inverse_poses(r))
+            torch.cuda.synchronize()
+            check_result(r, meshes, t_T0.shape[0], spec.code_length)
+            return r, meshes, time.perf_counter() - t0
+
+        counts = LaunchCounts()
+        r_k, m_k, t_k = solve()
+        counts.read()
+        counts.require(("mlp_fwd_grad", "mlp_fwd", "mlp_shared_latent"), "compacted B=8 solve")
+        assert counts.n["fused_render"] == 0, counts.n
+        launches[("trust region", "bf16" if fwd_bf16 else "f32")] = dict(counts.n)
+        with plain_versions():
+            r_p, m_p, t_p = solve()
+        cd_k, cd_p = mean_cd_mm(m_k, t_gts, dev), mean_cd_mm(m_p, t_gts, dev)
+        gap = cd_k - cd_p
+        print(f"compacted B={t_T0.shape[0]} solve (challenge YAML, forward "
+              f"{'bf16' if fwd_bf16 else 'f32'}): mean CD kernels {cd_k:.4f} mm vs plain "
+              f"{cd_p:.4f} mm, gap {gap:+.4f} mm (gate {CD_GATE_MM} mm) | batch kernels "
+              f"{t_k * 1e3:.1f} ms, plain {t_p * 1e3:.1f} ms | mean iters kernels "
+              f"{float(r_k.iter_count.float().mean()):.2f}, plain "
+              f"{float(r_p.iter_count.float().mean()):.2f} | launches {counts}", flush=True)
+        assert abs(gap) <= CD_GATE_MM, gap
+    print(f"compacted phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return checks, launches
+
+
 def write_sdf_samples(root: str, cat, n_scenes: int, n_each: int, seed: int = 0):
     """DeepSDF SdfSamples of `n_scenes` ellipsoids of the category's family
     (codes ~ N(0, 0.5^2)), `n_each` samples of each sign a scene: points
@@ -2473,10 +3011,28 @@ def main() -> int:
     # ---------------- 14. training path ----------------
     rows.append(train_path(smi, dev, profile=args.profile))
 
-    # ---------------- 15. asset build and the torch checkpoint ----------------
+    # ---------------- 15. interactive wild path ----------------
+    inter = interactive_path(params, spec, table, pk16, pk32, smi, dev)
+    rows += [kernel_record(k, inter[k], inter["launches"][k], f"interactive wild ({shape})")
+             for k, shape in (("mlp_fwd_grad", "one lane"), ("fused_render", "B=1"),
+                              ("mlp_fwd", "the row's retrieval"), ("mlp_shared_latent", "one code"))]
+
+    # ---------------- 16. compacted render paths ----------------
+    fine = _subsample(obs, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac, cfg.fine_sample_frac,
+                      cfg.fine_pts_frac)
+    checks, launches = compact_path(
+        params, spec, table, smi, dev,
+        shapes=(("trust region", obs_tr, tr_cfg, lat_rt, T_rt),
+                ("bench fine", *fine, lat_r, T_r)),
+        bench=(cfg, obs, T0), tr=(tr_cfg, obs_tr, T0_tr, gts_tr))
+    for (label, name, mode), check in checks.items():
+        rows.append(kernel_record(name, check, launches[(label, mode)][name],
+                                  f"compacted {label}, forward {mode}"))
+
+    # ---------------- 17. asset build and the torch checkpoint ----------------
     asset_path(smi, dev, t_script0)
 
-    # ---------------- 16. the JSON lines ----------------
+    # ---------------- 18. the JSON lines ----------------
     print(json.dumps({"kernels": list(records.values()) + rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -105,8 +105,10 @@ class JointOptConfig:
     outlier_scale_min: float = 0.5
     outlier_scale_max: float = 1.25
     outlier_rot_max_deg: float = 60.0
-    # performance knobs of the JAX package (`opt.tpu`); jac_cap / fwd_cap
-    # (compacted render paths) are not ported yet and must stay -1
+    # performance knobs of the JAX package (`opt.tpu`). The compacted
+    # render paths (dense route only, `ops/render.py`): jac_cap and fwd_cap
+    # -1 = dense, 0 = auto budget, > 0 explicit; fwd_bf16 = the compacted
+    # route's forward pass in bf16
     jac_cap: int = -1
     fwd_cap: int = -1
     fwd_bf16: bool = False
@@ -135,6 +137,26 @@ class JointOptConfig:
         return mlp_kernels.supported(spec)
 
     @property
+    def jac_cap_resolved(self) -> int:
+        """Band samples a frame whose Jacobians the compacted route takes:
+        0 = dense; auto (0) = 40 % of the frame's R x M samples."""
+        if self.jac_cap == -1:
+            return 0
+        if self.jac_cap == 0:
+            return (2 * self.n_rays * self.n_sample_on_ray) // 5
+        return self.jac_cap
+
+    @property
+    def fwd_cap_resolved(self) -> int:
+        """In-radius samples a frame the compacted route decodes: 0 =
+        dense; auto (0) = 55 % of the frame's R x M samples."""
+        if self.fwd_cap == -1:
+            return 0
+        if self.fwd_cap == 0:
+            return (11 * self.n_rays * self.n_sample_on_ray) // 20
+        return self.fwd_cap
+
+    @property
     def pose_dim(self) -> int:
         return 7 if self.scale_on else 6
 
@@ -143,17 +165,11 @@ class JointOptConfig:
         return self.n_fg_pix + self.n_bg_pix
 
     def check_ported(self) -> None:
-        """Raise for the solver options whose slice of the port has not
-        landed yet (`ROADMAP.md` Queue A, "The compacted render paths"), and
-        for an `init_mode` other than mean or retrieval."""
-        missing = []
+        """Raise for an `init_mode` other than mean or retrieval (the JAX
+        package treats every other mode as mean)."""
         if self.init_mode not in ("mean", "retrieval"):
-            missing.append(f"init_mode={self.init_mode!r}")
-        if self.jac_cap != -1 or self.fwd_cap != -1:
-            missing.append("jac_cap / fwd_cap compacted render paths")
-        if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch package yet: " + ", ".join(missing)
+                f"not ported to the PyTorch package: init_mode={self.init_mode!r}"
             )
 
     @classmethod

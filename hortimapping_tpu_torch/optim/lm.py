@@ -31,7 +31,7 @@ from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 from hortimapping_tpu_torch.ops import mlp_kernels
 from hortimapping_tpu_torch.ops.lie import exp_se3, exp_sim3_ref, rotation_matrix_to_angle
 from hortimapping_tpu_torch.ops.recon import sdf_residuals
-from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals
+from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals, takes_fused
 from hortimapping_tpu_torch.ops.robust import huber_weights
 from hortimapping_tpu_torch.optim.state import FruitObservations, OptResult, OptState, init_state
 from hortimapping_tpu_torch.parallel.sharding import pad_to_multiple
@@ -40,12 +40,15 @@ from hortimapping_tpu_torch.parallel.sharding import pad_to_multiple
 @dataclasses.dataclass(frozen=True)
 class Packs:
     """Decoder weights packed once per solve: for the render route (bf16 or
-    f32 per `fused_bf16`), for the SDF term (f32) and, where the solve
-    retrieves codes, for retrieval scoring (per `retrieval_score_bf16`)."""
+    f32 per `fused_bf16` on the fused route, f32 on the dense one), for the
+    SDF term (f32), where the solve retrieves codes for retrieval scoring
+    (per `retrieval_score_bf16`), and for the compacted route's forward pass
+    (per `fwd_bf16`)."""
 
     render: Optional[mlp_kernels.PackedDecoder]
     sdf: Optional[mlp_kernels.PackedDecoder]
     score: Optional[mlp_kernels.KernelDecoder] = None
+    fwd: Optional[mlp_kernels.PackedDecoder] = None
 
 
 def make_packs(params: Params, spec: DecoderSpec, cfg: JointOptConfig,
@@ -56,9 +59,14 @@ def make_packs(params: Params, spec: DecoderSpec, cfg: JointOptConfig,
     sdf = f32 if cfg.pallas_resolved(spec) else None
     scorer = (mlp_kernels.KernelDecoder(params, spec, bf16=cfg.retrieval_score_bf16)
               if score else None)
-    if cfg.fused_resolved(spec) and cfg.fused_bf16:
-        return Packs(mlp_kernels.pack_params(params, spec, torch.bfloat16), sdf, scorer)
-    return Packs(f32, sdf, scorer)
+    rcfg = _render_config(cfg, spec)
+    bf16 = lambda: mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    if takes_fused(rcfg, spec):
+        return Packs(bf16() if cfg.fused_bf16 else f32, sdf, scorer)
+    fwd = None
+    if rcfg.jac_cap > 0 and rcfg.use_pallas:
+        fwd = bf16() if cfg.fwd_bf16 else f32
+    return Packs(f32, sdf, scorer, fwd)
 
 
 def _render_config(cfg: JointOptConfig, spec: DecoderSpec) -> RenderConfig:
@@ -67,6 +75,9 @@ def _render_config(cfg: JointOptConfig, spec: DecoderSpec) -> RenderConfig:
         log_occ_on=cfg.log_sdf_occ,
         occ_cutoff=cfg.occ_cutoff_m,
         occlusion_on=cfg.occlusion_on,
+        jac_cap=cfg.jac_cap_resolved,
+        fwd_cap=cfg.fwd_cap_resolved,
+        fwd_bf16=cfg.fwd_bf16,
         use_pallas=cfg.pallas_resolved(spec),
         fused=cfg.fused_resolved(spec),
         fused_bf16=cfg.fused_bf16,
@@ -145,7 +156,7 @@ def _assemble_normal_equations(
     T_oc, depths, depth_range = render_geometry(cfg, obs, T_ow, cube_radius)
     rr = render_residuals(
         params, spec, latent, obs.rays, is_fg, obs.ray_valid & obs.frame_valid[..., None],
-        obs.depth_obs, T_oc, depths, depth_range, rcfg, lane_active, packs.render,
+        obs.depth_obs, T_oc, depths, depth_range, rcfg, lane_active, packs.render, packs.fwd,
     )
 
     obs_count = rr.ray_ok.sum((1, 2)).to(f32)                                  # [B]

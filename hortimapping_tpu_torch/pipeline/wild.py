@@ -12,11 +12,13 @@ manifest.
 Three phases, in the JAX package's order and semantics:
 1. host preprocessing of every submap (`prepare_submaps`) into fixed-shape
    observation buffers;
-2. one batched `warmstart_solve` of all prepared fruits on the device;
+2. one batched `warmstart_solve` of all prepared fruits on the device or,
+   with an interactive visualizer (`vis.interactive`), `solve_interactive`:
+   each fruit solved alone with every LM iteration's mesh replayed in the
+   window;
 3. outlier gates, one batched grid decode and host meshing, the outputs.
-The JAX package's interactive branch (Open3D replay of every iteration) and
-its multi-device branch are not ported; one card always takes the batched
-solve.
+The JAX package's multi-device branch is not ported; one card takes the
+batched solve.
 
 Run:  python -m hortimapping_tpu_torch.pipeline.wild -c configs/wild_pepper_tpu.yaml
 """
@@ -41,8 +43,9 @@ from hortimapping_tpu_torch.data.rays import get_render_data, render_data_to_obs
 from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.workspace import config_decoder, load_latent_vectors
 from hortimapping_tpu_torch.ops.mesher import MeshExtractor
-from hortimapping_tpu_torch.optim.state import stack_observations
-from hortimapping_tpu_torch.optim.warmstart import warmstart_solve
+from hortimapping_tpu_torch.optim.lm import shape_pose_joint_opt_traced
+from hortimapping_tpu_torch.optim.state import OptResult, stack_observations
+from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init, warmstart_solve
 from hortimapping_tpu_torch.utils.misc import set_random_seed, trace_if_enabled
 from hortimapping_tpu_torch.vis import color_table, make_visualizer
 
@@ -178,6 +181,40 @@ def write_outputs(out_dirs: Dict[str, str], name: str, mesh, clean_pcd: PointClo
     np.save(os.path.join(out_dirs["pose"], name.replace("ply", "npy")), T_wo)
 
 
+def solve_interactive(params, spec, opt_cfg: JointOptConfig, latent_table: torch.Tensor,
+                      obs_b, lat0: torch.Tensor, T0: torch.Tensor, prepared: List[Prepared],
+                      mesher: MeshExtractor, vis, cube_radius: float,
+                      dev: torch.device) -> OptResult:
+    """The interactive branch of phase 2: the batch's start codes and poses
+    (the retrieval warm start where configured), then each fruit in turn:
+    its scan shown, the visualizer's verdict (SPACE solves, N skips: the
+    fruit keeps its start, 0 iterations, failed), the traced single-fruit
+    solve, and its trajectory replayed (each iteration's code meshed and
+    posed, then shown). The trajectory's poses cross to the host in one copy
+    a fruit; the solve itself never waits for the host. Returns the stacked
+    per-fruit results."""
+    lat0, T0 = maybe_retrieval_init(params, spec, opt_cfg, latent_table, obs_b, lat0, T0,
+                                    device=dev)
+    outs = []
+    for i, p in enumerate(prepared):
+        vis.clean_vis()
+        vis.add_scan(p.clean_pcd)
+        if vis.stop():   # the user skipped this fruit
+            outs.append(OptResult(lat0[i], T0[i], torch.zeros((), dtype=torch.int32, device=dev),
+                                  torch.ones((), dtype=torch.bool, device=dev),
+                                  torch.zeros((), dtype=torch.bool, device=dev)))
+            continue
+        res_i, (lat_traj, T_traj) = shape_pose_joint_opt_traced(
+            params, spec, opt_cfg, p.obs, lat0[i], T0[i], cube_radius, device=dev)
+        T_traj = T_traj.cpu().numpy()
+        for it in range(int(res_i.iter_count)):
+            mesh_it = mesher.complete_mesh(lat_traj[it], np.linalg.inv(T_traj[it]), p.color)
+            vis.update_mesh_pose(mesh_it, np.eye(4), it)
+        vis.stop()
+        outs.append(res_i)
+    return OptResult(*(torch.stack(field) for field in zip(*outs)))
+
+
 def run_wild_completion(cfg: Dict, log=print,
                         device: str | torch.device = "cuda") -> List[FruitResult]:
     dev = resolve_device(device)
@@ -233,8 +270,12 @@ def run_wild_completion(cfg: Dict, log=print,
     mesher = MeshExtractor(params, spec, voxels_dim, object_radius_max_m,
                            method=vis_cfg.get("iso_method", "mt"), device=dev)
     with trace_if_enabled("wild_joint_opt"):
-        res = warmstart_solve(params, spec, opt_cfg, latents_train, obs_b, lat0, T0,
-                              object_radius_max_m, device=dev)
+        if getattr(vis, "interactive", False):
+            res = solve_interactive(params, spec, opt_cfg, latents_train, obs_b, lat0, T0,
+                                    prepared, mesher, vis, object_radius_max_m, dev)
+        else:
+            res = warmstart_solve(params, spec, opt_cfg, latents_train, obs_b, lat0, T0,
+                                  object_radius_max_m, device=dev)
 
     # ---------------- phase 3: gates, batched meshing, outputs ----------------
     latents = res.latent.cpu().numpy()

@@ -508,3 +508,112 @@ def test_train_steps_card_match_cpu(cuda, tmp_path, monkeypatch):
             d = (res_card.params[name][k].cpu() - res_cpu.params[name][k]).abs().max()
             assert float(d) <= 2e-5, (name, k, float(d))
     assert np.abs(res_card.latent_codes - res_cpu.latent_codes).max() <= 5e-5
+
+
+def _compacted_inputs(spec, dev, B=3, F=2, R=48, M=22, seed=11):
+    """Render inputs of `ops/render.render_residuals` (rays, not points) on
+    `dev`, with padded rays in one frame."""
+    rng = np.random.default_rng(seed)
+    ang = np.concatenate([rng.normal(size=(B, F, R, 2)) * 0.1, np.ones((B, F, R, 1))], -1)
+    T_oc = np.linalg.inv(np.array([[1, 0, 0, 0.01], [0, 1, 0, -0.02], [0, 0, 1, 0.3],
+                                   [0, 0, 0, 1]]))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32).to(dev)
+    ray_valid = torch.ones(B, F, R, dtype=torch.bool, device=dev)
+    ray_valid[0, 1, R - 5:] = False
+    return (t(rng.normal(size=(B, spec.code_length)) * 0.05), t(ang),
+            torch.arange(R, device=dev) < R // 2, ray_valid,
+            t(0.3 + rng.normal(size=(B, F, R)) * 0.03), t(np.broadcast_to(T_oc, (B, F, 4, 4))),
+            t(np.broadcast_to(np.linspace(0.2, 0.42, M), (B, F, M))), t(np.full((B, F), 0.12)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fwd_bf16", [False, True], ids=["f32", "bf16"])
+def test_compacted_render_kernels_match_plain(cuda, fwd_bf16):
+    """The compacted route on the card: B3 on the forward rows (the first K1
+    in-radius samples a frame, overflowing) and B1 on the compacted band
+    rows (overflowing), each launched once, against the same route on the
+    CPU (plain versions). f32 forward: values within 2e-5 of each output's
+    largest magnitude, ray_ok equal. bf16 forward: the fused-kernel gate's
+    residual quantiles. A second run is bit-equal."""
+    from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals
+
+    params, spec = _decoder("synthetic_pepper_32", 3, cuda)
+    args = _compacted_inputs(spec, cuda)
+    probe = {}
+    base = dict(scale_on=True, log_occ_on=True, occ_cutoff=0.15, min_valid_sample=10,
+                use_pallas=True, fwd_bf16=fwd_bf16)
+    cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in params.items()}
+    cpu_args = tuple(a.cpu() for a in args)
+    render_residuals(cpu_params, spec, *cpu_args,
+                     RenderConfig(jac_cap=48 * 22, fwd_cap=48 * 22, **base), stats=probe)
+    cfg = RenderConfig(jac_cap=int(probe["band"].min()) // 2,
+                       fwd_cap=int(0.8 * probe["in_radius"].min()), **base)
+    want_stats, stats = {}, {}
+    want = render_residuals(cpu_params, spec, *cpu_args, cfg, stats=want_stats)
+    before = (mlp_kernels.launches, mlp_kernels.launches_fwd)
+    got = render_residuals(params, spec, *args, cfg, stats=stats)
+    again = render_residuals(params, spec, *args, cfg)
+    torch.cuda.synchronize()
+    assert (mlp_kernels.launches, mlp_kernels.launches_fwd) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert int(stats["band_overflow"].sum()) > 0 and int(stats["fwd_overflow"].sum()) > 0
+    ok = want.ray_ok.to(cuda)
+    assert int(ok.sum()) > 0
+    if not fwd_bf16:
+        assert torch.equal(got.ray_ok.cpu(), want.ray_ok)
+        for g, w in zip(got[:4], want[:4]):
+            assert float(_rel(g, w).max()) <= 2e-5
+    else:
+        for g, w in ((got.res_d, want.res_d), (got.res_m, want.res_m)):
+            d = (g - w.to(cuda)).abs()[ok].double()
+            assert float(d.median()) <= 2e-3 and float(torch.quantile(d, 0.9)) <= 4e-3
+            assert float((d > 1e-3).double().mean()) <= 0.2
+
+
+@pytest.mark.cuda
+def test_one_lane_kernels_match_plain(cuda):
+    """The interactive replay's shapes: B1 on one lane of 2000 rows, B2 on
+    one lane (B = 1, bf16 under the fused-kernel gate, f32 tight) and B4 on
+    one code over the 40^3 grid (bf16 and f32)."""
+    from hortimapping_tpu_torch.ops.mesher import create_voxel_grid
+
+    params, spec = _decoder("synthetic_pepper_32", 4, cuda)
+    rng = np.random.default_rng(12)
+    pk32 = mlp_kernels.pack_params(params, spec)
+    pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    code = torch.as_tensor((rng.normal(size=(1, spec.code_length)) * 0.1).astype(np.float32))
+    xyz = torch.as_tensor((rng.normal(size=(1, 2000, 3)) * 0.05).astype(np.float32))
+    x = torch.cat([code[:, None].expand(1, 2000, spec.code_length), xyz], -1).to(cuda)
+    active = torch.ones(1, dtype=torch.bool, device=cuda)
+    got = mlp_kernels.mlp_sdf_and_input_grad(pk32, x, active)
+    want = mlp_kernels.mlp_sdf_and_input_grad_plain(pk32, x, active)
+    for g, w in zip(got, want):
+        _held_to_plain(g, w, "f32")
+
+    args = _render_inputs(spec, cuda, B=1, F=10, R=400, M=30, seed=13)
+    args = args[:-1] + (torch.ones(1, dtype=torch.bool, device=cuda),)
+    kw = dict(pose_dim=7, scale_on=True, log_occ_on=True, occ_cutoff=0.15, occlusion_on=True,
+              occlusion_th=0.03, min_grad_th=1e-6)
+    g16 = render_kernel.fused_render(pk16, *args, **kw)
+    w16 = render_kernel.fused_render_plain(pk16, *args, **kw)
+    ok = w16[2][..., 2] > 0.5
+    assert int(ok.sum()) > 0
+    for k in (0, 1):
+        d = (g16[2][..., k] - w16[2][..., k]).abs()[ok].double()
+        assert float(d.median()) <= 2e-3 and float(torch.quantile(d, 0.9)) <= 4e-3
+        assert float((d > 1e-3).double().mean()) <= 0.2
+    # f32 tight on a slice of 2 frames x 64 rays (as chip_smoke's check)
+    lat, pts, depth, is_fg, rv, depths, bbx, act = args
+    small = (lat, pts[:, :2, :64].contiguous(), depth[:, :2, :64], is_fg[:64], rv[:, :2, :64],
+             depths[:, :2], bbx[:, :2], act)
+    g32 = render_kernel.fused_render(pk32, *small, **kw)
+    w32 = render_kernel.fused_render_plain(pk32, *small, **kw)
+    for g, w in zip(g32, w32):
+        assert float(_rel(g, w).max()) <= 2e-5
+
+    grid = torch.as_tensor(create_voxel_grid(40), dtype=torch.float32).to(cuda) * 0.08
+    for pk, dtype in ((pk32, "f32"), (pk16, "bf16")):
+        got = mlp_kernels.mlp_sdf_shared_latent(pk, code.to(cuda), grid)
+        want = mlp_kernels.mlp_sdf_shared_latent_plain(pk, code.to(cuda), grid)
+        assert got.shape == (1, 40 ** 3)
+        _held_to_plain(got, want, dtype)
