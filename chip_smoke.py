@@ -129,22 +129,37 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      LM iteration of the dense unfused, compacted and fused routes; the
      bench path and a B=8 solve on the compacted route (B2 never launched),
      the solve within 0.3 mm of its plain versions;
- 17. the asset build and the torch checkpoint: `make_category` of
+ 17. fruit-parallel execution over a mesh (all cards where the host has
+     more than one, else 4 shards of cuda:0, each a host thread and a CUDA
+     stream of its own): the bench batch with unit-scale bf16 retrieval and
+     coarse-to-fine LM inside the shards through `shard_joint_opt`, each
+     shard's lanes bit-equal to the unsharded solve of those lanes, mean
+     Chamfer-L1 after meshing within 0.3 mm of the unsharded batch, ms a
+     batch on 1, 2 and 4 shards, all four launch counts; B1 and B2 against
+     their plain versions at the shard width on the run's own observations;
+     a served burst of 64 with `use_mesh` on that mesh (max_batch 32), each
+     lane within 1e-5 of `shard_joint_opt` of its batch, fruits/s;
+     data-parallel training at 64 x 8192 rows a step, 8 steps on 2 shards,
+     held to the single-device trainer fed the same draws, ms a step; 4
+     threads of small ops free and taking host turns against one; the
+     two-process smoke (`tools/multihost_smoke.py --device cuda`);
+ 18. the asset build and the torch checkpoint: `make_category` of
      synthetic_pepper_32 (12000 steps x 8192 rows, cut and the cut printed if
      the script would pass 1000 s) timed, its SDF error on 65536 held-out
      points within 1.5x the shipped decoder's; the shipped decoder written as
      the reference's weight-normed `.pth` files and loaded on the card, its
      SDF within 1e-6 of the native load's;
- 18. one JSON line of kernel records (the four kernels at their greenhouse
+ 19. one JSON line of kernel records (the four kernels at their greenhouse
      shapes, then each kernel on the greenhouse-from-disk runs and the
      served batches, B4 on the trained decoder, the four at the interactive
-     path's shapes and B1 and B3 on the compacted rows), then the JSON
-     result line.
+     path's shapes, B1 and B3 on the compacted rows, B1 and B2 at the
+     shard width), then the JSON result line.
 With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
 challenge run, one lab multi-frame run, one greenhouse-from-disk run, one
-served burst and one training epoch are traced by torch.profiler
-(device-time tables appended to FILE, idle share printed), and one more
-greenhouse batch with the SDF term's frozen-lane skip turned off.
+served burst, one training epoch and one 4-shard bench batch are traced by
+torch.profiler (device-time tables appended to FILE, idle share printed),
+and one more greenhouse batch with the SDF term's frozen-lane skip turned
+off.
 
 Run from the repository root: python3 chip_smoke.py [--quick] [--profile FILE]
 (--quick stops after phase 4). The JAX package is never imported.
@@ -204,7 +219,7 @@ GH_MEMORY = "greenhouse in memory"   # the path of the kernels line's first four
 TRAIN_SCENES = 256             # SdfSamples scenes of the training path (~134 MB)
 TRAIN_SAMPLES = 16384          # samples of each sign a scene
 TRAIN_EPOCHS = 20              # 4 steps an epoch at ScenesPerBatch 64: 80 steps
-SCRIPT_BUDGET_S = 1000         # phase 17 cuts the asset build's steps to end the script by then
+SCRIPT_BUDGET_S = 1000         # phase 18 cuts the asset build's steps to end the script by then
 HELD_OUT = 65536               # held-out points of the built decoder's SDF error
 KERNEL_SOURCES = {             # kernel: (its source, the TPU kernel it replaces)
     "mlp_fwd_grad": ("hortimapping_tpu_torch/csrc/mlp_fwd_grad.cu",
@@ -2585,7 +2600,7 @@ def write_pth_experiment(root: str, src: str) -> None:
 
 def asset_path(smi, dev, t_script0: float, name="synthetic_pepper_32", budget_s=SCRIPT_BUDGET_S,
                n_held_out=HELD_OUT, n_pth=4096):
-    """Phase 15, the asset build and the `.pth` load: `make_category(name)`
+    """Phase 18, the asset build and the `.pth` load: `make_category(name)`
     at the category's own steps and rows (cut, and the cut printed, if the
     script would pass `budget_s`), timed; its decoder's mean |pred -
     clamp(analytic SDF)| on `n_held_out` points drawn as the trainer draws
@@ -2667,6 +2682,286 @@ def asset_path(smi, dev, t_script0: float, name="synthetic_pepper_32", budget_s=
           f"equal, native cache written | |d weight| {d_w:.3g}, |d sdf| {d_sdf:.3g} on {n_pth} "
           f"points (gate 1e-6) | asset phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     assert d_sdf <= 1e-6, d_sdf
+
+
+def shard_mesh(n: int):
+    """A fruit mesh of n shards: the first n cards where the host has that
+    many, else n shards of cuda:0 side by side."""
+    import torch
+
+    from hortimapping_tpu_torch.parallel import fruit_mesh
+
+    if torch.cuda.device_count() >= n:
+        return fruit_mesh(n)
+    return fruit_mesh(devices=["cuda:0"] * n)
+
+
+def host_turn_probe(smi, dev, n_threads=4, iters=50, ops=30):
+    """Why the shards take host turns: `n_threads` threads each running
+    `iters` x (`ops` small elementwise ops on a stream of its own + a
+    read-back), free and taking turns (`parallel/sharding.host_read`),
+    against one thread. -> (one, free, turns) ms."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor, wait
+
+    import torch
+
+    from hortimapping_tpu_torch.parallel.sharding import _shard, host_read
+
+    x0 = torch.randn(8, 39, 39, device=dev)
+
+    def work():
+        with torch.cuda.stream(torch.cuda.Stream(device=dev)):
+            x = x0.clone()
+            for _ in range(iters):
+                for _ in range(ops):
+                    x = x * 0.999 + 0.001
+                host_read((x > 1e9).any())
+
+    def run(n, turns):
+        lock = threading.Lock()
+
+        def one():
+            if not turns:
+                return work()
+            with lock:
+                _shard.turn = lock
+                try:
+                    work()
+                finally:
+                    _shard.turn = None
+
+        with ThreadPoolExecutor(n) as pool:
+            futs = [pool.submit(one) for _ in range(n)]
+            wait(futs)
+            [f.result() for f in futs]
+
+    out = []
+    for n, turns in ((1, False), (n_threads, False), (n_threads, True)):
+        run(n, turns)
+        t0 = time.perf_counter()
+        run(n, turns)
+        out.append((time.perf_counter() - t0) * 1e3)
+    print(f"host turns: {iters} x ({ops} elementwise ops + a read-back) a thread | 1 thread "
+          f"{out[0]:.1f} ms | {n_threads} threads free {out[1]:.1f} ms ({out[1] / out[0]:.1f}x "
+          f"one), taking host turns {out[2]:.1f} ms ({out[2] / out[0]:.1f}x) | {smi}", flush=True)
+    return out
+
+
+def mesh_train(smi, dev, tmp: str, arch_dir: str, n_scenes=64, n_each=16384, steps=8,
+               shards=2):
+    """Data-parallel training at full width: 64 x 8192 rows a step (8 x 512
+    decoder) for `steps` steps of one epoch each, over `shards` shards, and
+    the single-device trainer fed the same draws (each step's shards' draws
+    concatenated) from the same init: losses within 1e-6, weights within
+    1e-4, codes within 4e-5 (tests/test_torch_train.py's bounds). -> the
+    line's numbers."""
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.models.decoder import DecoderSpec, init_decoder_params
+    from hortimapping_tpu_torch.models.workspace import load_specs
+    from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory
+    from hortimapping_tpu_torch.train import deepsdf
+
+    with np.load(os.path.join(arch_dir, "native", "latest.npz")) as z:
+        spec = DecoderSpec.from_specs_json(load_specs(arch_dir))
+        cat = SyntheticCategory(spec=spec, base_radius=float(z["synthetic.base_radius"]))
+    data = os.path.join(tmp, "data")
+    write_sdf_samples(data, cat, n_scenes, n_each)
+    init_cpu = init_decoder_params(spec, torch.Generator().manual_seed(3), "cpu")
+
+    def init(device):
+        return {k: {kk: v.clone().to(device) for kk, v in p.items()} for k, p in init_cpu.items()}
+
+    mesh = shard_mesh(shards)
+    runs, draws = {}, []
+    for label in ("mesh", "single"):
+        exp = train_experiment(os.path.join(tmp, label), data, arch_dir, NumEpochs=steps)
+        stamps = []
+        kw = dict(num_epochs=steps, epochs_per_call=1, save=False, device=dev,
+                  log=lambda msg: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "mesh":
+            with replayed_training(init, record=draws):
+                res = deepsdf.train_deepsdf(exp, mesh=mesh, **kw)
+            n = len(mesh.devices)
+            replay = [tuple(torch.cat([d[k] for d in draws[i:i + n]]) for k in range(3))
+                      for i in range(0, len(draws), n)]
+        else:
+            with replayed_training(init, draws=replay):
+                res = deepsdf.train_deepsdf(exp, **kw)
+            assert not replay
+        runs[label] = (res, float(np.median(np.diff([t0] + stamps)[1:])) * 1e3)
+    (res_m, ms_m), (res_s, ms_s) = runs["mesh"], runs["single"]
+    assert len(draws) == steps * len(mesh.devices)
+    d_loss = float(np.abs(res_m.losses - res_s.losses).max())
+    d_w = max(float((res_m.params[k][kk] - res_s.params[k][kk]).abs().max())
+              for k in res_s.params for kk in ("w", "b"))
+    d_z = float(np.abs(res_m.latent_codes - res_s.latent_codes).max())
+    print(f"mesh training: {n_scenes} scenes, {spec.dims[0]} x {len(spec.dims)} decoder, 64 x "
+          f"8192 rows a step over {len(mesh.devices)} shards ({[str(d) for d in mesh.devices]}; "
+          f"32 scenes each), {steps} steps | {ms_m:.1f} ms a step (median of steps 2-{steps}), "
+          f"single device fed the same draws {ms_s:.1f} ms | losses "
+          f"{res_m.losses.round(6).tolist()} | |d loss| {d_loss:.3g} (gate 1e-6), |d weight| "
+          f"{d_w:.3g} (gate 1e-4), |d code| {d_z:.3g} (gate 4e-5) | {smi}", flush=True)
+    assert np.isfinite(res_m.losses).all()
+    assert d_loss <= 1e-6 and d_w <= 1e-4 and d_z <= 4e-5, (d_loss, d_w, d_z)
+    return ms_m, ms_s
+
+
+def mesh_path(params, spec, table, pk16, pk32, smi, dev, obs, T0, gts, profile=None):
+    """Phase 17, fruit-parallel execution over a mesh (all cards where the
+    host has more than one, else 4 shards of cuda:0): the bench batch
+    (bench config with unit-scale bf16 retrieval and coarse-to-fine LM
+    inside the shards, 40^3 meshing) through `shard_joint_opt`, each shard's
+    lanes bit-equal to the unsharded solve of those lanes at the shard's
+    width, the mean CD within 0.3 mm of the unsharded batch's, ms a batch on
+    1, 2 and 4 shards, all four launch counts, B1 and B2 against their plain
+    versions at the shard width on the run's own observations; a sharded
+    served burst of 64 (max_batch 32), each lane within 1e-5 of
+    `shard_joint_opt` of its batch; data-parallel training on 2 shards held
+    to the single-device trainer; the two-process smoke on the card. With
+    `profile`, one 4-shard batch traced. -> kernel records."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.optim.lm import _subsample, subsample_observations
+    from hortimapping_tpu_torch.optim.state import FruitObservations, upload
+    from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+    from hortimapping_tpu_torch.parallel import shard_joint_opt
+    from hortimapping_tpu_torch.serve import CompletionServer, _assemble_batch_np
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    mesh = shard_mesh(n_cards) if n_cards > 1 else shard_mesh(4)
+    print(f"mesh phase: {n_cards} card(s) | the mesh: {mesh.size} shards "
+          f"{[str(d) for d in mesh.devices]}", flush=True)
+    cfg = dataclasses.replace(bench_cfg(), init_mode="retrieval", retrieval_score_pts=128,
+                              retrieval_n_scales=1, retrieval_scale_min=1.0,
+                              retrieval_scale_max=1.0, retrieval_score_bf16=True)
+    C = spec.code_length
+    lat0 = table.mean(0, keepdim=True).expand(N_FRUITS, C).contiguous()
+    mesher = MeshExtractor(params, spec, voxels_dim=VOXELS, cube_radius=CUBE_RADIUS, device=dev)
+
+    def batch(m):
+        """One bench batch: the solve (sharded over `m`, or unsharded for
+        None) and its meshes."""
+        if m is None:
+            res = lm.joint_opt(params, spec, cfg, obs, lat0, T0, CUBE_RADIUS,
+                               latent_table=table, device=dev)
+        else:
+            res = shard_joint_opt(params, spec, cfg, obs, lat0, T0, CUBE_RADIUS, m,
+                                  latent_table=table, device=dev)
+        meshes = mesher.meshes_from_grids(mesher.decode_grids(res.latent))
+        torch.cuda.synchronize()
+        return res, [mh.transform(T) for mh, T in zip(meshes, inverse_poses(res))]
+
+    meshes_by = {"unsharded": None, "1": shard_mesh(1), "2": shard_mesh(2), "4": mesh}
+    times, out = {}, {}
+    for label, m in meshes_by.items():
+        batch(m)   # warm-up: the shards' replicas, streams and first launches
+        t = []
+        for _ in range(3):
+            counts = LaunchCounts()
+            t0 = time.perf_counter()
+            out[label] = batch(m)
+            t.append(time.perf_counter() - t0)
+            counts.read()
+        times[label] = float(np.median(t)) * 1e3
+        if label == "4":
+            counts.require(LaunchCounts.ALL, "sharded bench path")
+            counts_4 = counts
+    res_u, meshes_u = out["unsharded"]
+    res_4, meshes_4 = out["4"]
+    check_result(res_4, meshes_4, N_FRUITS, C)
+    # each shard's lanes: the unsharded solve of those lanes at the shard's width
+    per = N_FRUITS // mesh.size
+    for s in range(mesh.size):
+        lo, hi = s * per, (s + 1) * per
+        want = lm.joint_opt(params, spec, cfg, FruitObservations(*(a[lo:hi] for a in obs)),
+                            lat0[lo:hi], T0[lo:hi], CUBE_RADIUS, latent_table=table, device=dev)
+        for field, a, b in zip(want._fields, res_4, want):
+            assert torch.equal(a[lo:hi], b), ("shard", s, field)
+    cd_u, cd_4 = mean_cd_mm(meshes_u, gts, dev), mean_cd_mm(meshes_4, gts, dev)
+    print(f"sharded bench path: B={N_FRUITS}, retrieval (bf16, unit scale) + c2f LM inside each "
+          f"shard + {VOXELS}^3 meshing | ms a batch (median of 3): unsharded "
+          f"{times['unsharded']:.1f}, 1 shard {times['1']:.1f}, 2 shards {times['2']:.1f}, "
+          f"{mesh.size} shards {times['4']:.1f} | each of the {mesh.size} shards' {per} lanes "
+          f"bit-equal to the unsharded solve of those lanes | mean CD-L1 {cd_4:.4f} mm vs "
+          f"unsharded B={N_FRUITS} {cd_u:.4f} mm, gap {cd_4 - cd_u:+.4f} mm (gate {CD_GATE_MM} "
+          f"mm) | mean iters {float(res_4.iter_count.float().mean()):.2f} | launches on "
+          f"{mesh.size} shards {counts_4} | {smi}", flush=True)
+    assert abs(cd_4 - cd_u) <= CD_GATE_MM, (cd_4, cd_u)
+    if profile:
+        profile_main(lambda: batch(mesh), smi, profile,
+                     f"sharded bench path, {mesh.size} shards (unsharded bench: idle 0.502, "
+                     f"PERF.md)")
+
+    # B1 and B2 at the shard width, on the run's own observations (shard 0's
+    # lanes at its retrieved codes and poses)
+    o8 = FruitObservations(*(a[:per] for a in obs))
+    lat_r, T_r = maybe_retrieval_init(params, spec, cfg, table, o8, lat0[:per], T0[:per],
+                                      device=dev)
+    records = []
+    for phase, (o, c) in ((f"bench coarse, {per} lanes a shard", subsample_observations(o8, cfg)),
+                          (f"bench fine, {per} lanes a shard",
+                           _subsample(o8, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac,
+                                      cfg.fine_sample_frac, cfg.fine_pts_frac))):
+        pts_o = o.points_w @ T_r[:, :3, :3].transpose(1, 2) + T_r[:, None, :3, 3]
+        x = torch.cat([lat_r[:, None].expand(per, pts_o.shape[1], C), pts_o], dim=-1)
+        b1 = check_mlp(phase, pk32, table, per, pts_o.shape[1], dev, x=x.contiguous())
+        b2 = check_render(phase, pk16, pk32, o, c, lat_r, T_r, dev)
+        records += [kernel_record(name, check, counts_4.n[name], f"sharded {phase}")
+                    for name, check in (("mlp_fwd_grad", b1), ("fused_render", b2))]
+
+    # the sharded served burst
+    lat_np = table.mean(0).cpu().numpy()
+    reqs = (serve_requests(spec, cfg, 42, N_FRUITS, lat_np, "bench")[0]
+            + serve_requests(spec, cfg, 43, N_FRUITS, lat_np, "s43")[0])
+    srv = CompletionServer(params, spec, cfg, CUBE_RADIUS, max_batch=N_FRUITS, latent_table=table,
+                           mesher=mesher, device=dev, use_mesh=True, mesh=mesh)
+    srv.warmup(reqs[0])
+    with srv:
+        t0 = time.perf_counter()
+        served = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
+        burst_s = time.perf_counter() - t0
+        devices = srv.stats()["devices"]
+    assert devices == mesh.size and all(r.batch_size == N_FRUITS for r in served)
+    gap = 0.0
+    for lo in (0, N_FRUITS):
+        o, l0, t_ = _assemble_batch_np(reqs[lo:lo + N_FRUITS], N_FRUITS)
+        res = shard_joint_opt(params, spec, cfg, FruitObservations(*(upload(a, dev) for a in o)),
+                              upload(l0, dev), upload(t_, dev), CUBE_RADIUS, mesh,
+                              latent_table=table, device=dev)
+        for i, r in enumerate(served[lo:lo + N_FRUITS]):
+            assert r.iter_count == int(res.iter_count[i]) and r.failed == bool(res.failed[i])
+            gap = max(gap, float(np.abs(r.latent - res.latent[i].cpu().numpy()).max()),
+                      float(np.abs(r.T_ow - res.T_ow[i].cpu().numpy()).max()))
+    assert gap <= 1e-5 and all(r.mesh is not None for r in served), gap
+    print(f"sharded serving burst: {len(reqs)} requests, use_mesh on {devices} shards, max_batch "
+          f"{N_FRUITS} | served in {burst_s * 1e3:.1f} ms ({len(reqs) / burst_s:.1f} fruits/s) | "
+          f"each lane vs shard_joint_opt of its batch: max gap {gap:.3g} (gate 1e-5) | {smi}",
+          flush=True)
+
+    # data-parallel training, the host-turn probe, then the two-process smoke
+    host_turn_probe(smi, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh_train(smi, dev, tmp, os.path.join(ROOT, "assets", "synthetic_pepper_32"))
+    smoke = subprocess.run(
+        [sys.executable, "-m", "hortimapping_tpu_torch.tools.multihost_smoke", "--device", "cuda",
+         "--timeout", "240"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    print("two-process smoke (gloo on 127.0.0.1, 2 shards a process, --device cuda): "
+          + " | ".join(l.strip() for l in smoke.stdout.splitlines()), flush=True)
+    assert smoke.returncode == 0, smoke.stdout[-4000:] + smoke.stderr[-4000:]
+    print(f"mesh phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
 
 
 def main() -> int:
@@ -3029,10 +3324,14 @@ def main() -> int:
         rows.append(kernel_record(name, check, launches[(label, mode)][name],
                                   f"compacted {label}, forward {mode}"))
 
-    # ---------------- 17. asset build and the torch checkpoint ----------------
+    # ---------------- 17. fruit-parallel execution over a mesh ----------------
+    rows += mesh_path(params, spec, table, pk16, pk32, smi, dev, obs, T0, gts,
+                      profile=args.profile)
+
+    # ---------------- 18. asset build and the torch checkpoint ----------------
     asset_path(smi, dev, t_script0)
 
-    # ---------------- 18. the JSON lines ----------------
+    # ---------------- 19. the JSON lines ----------------
     print(json.dumps({"kernels": list(records.values()) + rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,38 @@ def load_config(path: str) -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
+class ForceKeyErrorDict(dict):
+    """A dict that raises on a missing key and reads and writes keys as
+    attributes (the reference's `ForceKeyErrorDict`)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+
+def _wrap(obj):
+    if isinstance(obj, dict):
+        return ForceKeyErrorDict({k: _wrap(v) for k, v in obj.items()})
+    if isinstance(obj, list):
+        return [_wrap(v) for v in obj]
+    return obj
+
+
+def get_configs(path: str) -> ForceKeyErrorDict:
+    """A JSON (`.json`) or YAML config as nested `ForceKeyErrorDict`s (the
+    reference's `get_configs`)."""
+    import json
+
+    with open(path) as f:
+        data = json.load(f) if path.endswith(".json") else yaml.safe_load(f)
+    return _wrap(data)
+
+
 @dataclasses.dataclass(frozen=True)
 class JointOptConfig:
     """Static configuration of the joint shape+pose LM optimization (the

@@ -46,6 +46,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -932,20 +933,32 @@ inline int max_active_clusters(void (*kernel)(KArgs...), size_t smem) {
   return e != cudaSuccess ? -(int)e : n;
 }
 
-// max_active_clusters of one kernel, asked again only when its shared
-// memory changes (the caller keeps one cache a kernel: a static of a
-// launcher templated on the kernel's types)
+// max_active_clusters of one kernel on each device, asked again only when
+// its shared memory changes (the caller keeps one cache a kernel: a static of
+// a launcher templated on the kernel's types). Shards of the fruit mesh
+// launch from several host threads onto several devices, so the entries are
+// per device ordinal (the calling thread's current device, where the launch
+// goes) and read and written under a mutex; a failed query is not kept.
+constexpr int kMaxDevices = 64;
 struct WaveCache {
-  size_t smem = 0;
-  int clusters = 0;
+  std::mutex mu;
+  size_t smem[kMaxDevices] = {};
+  int clusters[kMaxDevices] = {};
 };
 template <typename... KArgs>
 inline int wave_clusters(void (*kernel)(KArgs...), size_t smem, WaveCache& cache) {
-  if (smem != cache.smem) {
-    cache.clusters = max_active_clusters(kernel, smem);
-    cache.smem = smem;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < 0 || dev >= kMaxDevices) return max_active_clusters(kernel, smem);
+  std::lock_guard<std::mutex> hold(cache.mu);
+  if (smem != cache.smem[dev]) {
+    const int n = max_active_clusters(kernel, smem);
+    if (n <= 0) return n;
+    cache.clusters[dev] = n;
+    cache.smem[dev] = smem;
   }
-  return cache.clusters;
+  return cache.clusters[dev];
 }
 
 // ------------------------------------------------------------ forward-only wave

@@ -133,5 +133,15 @@ def decoder_sdf_and_input_grad(
     return sdf.detach(), grad
 
 
+def decoder_sdf_grad_at(
+    params: Params, spec: DecoderSpec, latent: torch.Tensor, xyz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sdf, d sdf / d code, d sdf / d xyz) at points xyz under one code:
+    latent (C,), xyz (..., 3) -> (...), (..., C), (..., 3)."""
+    lat = latent.expand(xyz.shape[:-1] + latent.shape)
+    sdf, g = decoder_sdf_and_input_grad(params, spec, torch.cat([lat, xyz], dim=-1))
+    return sdf, g[..., : spec.code_length], g[..., spec.code_length:]
+
+
 def count_params(params: Params) -> int:
     return sum(p["w"].numel() + p["b"].numel() for p in params.values())

@@ -5,7 +5,10 @@ checkpoint (`ModelParameters/<ckpt>.pth`, weight norm folded at load time)
 or the native `.npz` (folded weights stored [in, out], the spec and the
 latent table) becomes `{"lin{l}": {"w", "b"}}` f32 tensors. The `.npz` keys
 are the JAX package's, so each package loads what the other writes. The
-JAX package's Orbax save/load is JAX-only and is not ported.
+counterpart of the JAX package's Orbax pair is
+`save_distributed_checkpoint` / `load_distributed_checkpoint` over
+`torch.distributed.checkpoint` (`<dir>/dcp/<checkpoint>/`, the same tree);
+each package reads only its own format there.
 
 Directory convention (the reference's):
     <experiment_dir>/specs.json
@@ -29,6 +32,7 @@ from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 MODEL_PARAMS_SUBDIR = "ModelParameters"
 LATENT_CODES_SUBDIR = "LatentCodes"
 NATIVE_SUBDIR = "native"
+DCP_SUBDIR = "dcp"
 SPECS_FILENAME = "specs.json"
 
 
@@ -170,6 +174,59 @@ def save_native_checkpoint(
         arrays["latent_codes"] = _to_numpy(latent_codes)
     np.savez(path, **arrays)
     return path
+
+
+def save_distributed_checkpoint(
+    experiment_directory: str,
+    checkpoint: str,
+    params: Params,
+    spec: DecoderSpec,
+    latent_codes: Optional[np.ndarray | torch.Tensor] = None,
+) -> str:
+    """Write the tree (params, spec, latent codes) as a
+    `torch.distributed.checkpoint` directory, `<dir>/dcp/<checkpoint>/`: the
+    counterpart of the JAX package's `save_orbax_checkpoint`. Runs in one
+    process without a process group (or collectively in one). -> its path."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(os.path.join(experiment_directory, DCP_SUBDIR, checkpoint))
+    tree = {f"params.{name}.{k}": torch.as_tensor(_to_numpy(p[k]))
+            for name, p in params.items() for k in ("w", "b")}
+    tree.update({
+        "spec.code_length": torch.tensor(spec.code_length, dtype=torch.int32),
+        "spec.dims": torch.tensor(spec.dims, dtype=torch.int32),
+        "spec.latent_in": torch.tensor(spec.latent_in, dtype=torch.int32),
+        "spec.clamping_distance": torch.tensor(spec.clamping_distance, dtype=torch.float64),
+    })
+    if latent_codes is not None:
+        tree["latent_codes"] = torch.as_tensor(_to_numpy(latent_codes), dtype=torch.float32)
+    dcp.save(tree, checkpoint_id=path)
+    return path
+
+
+def load_distributed_checkpoint(
+    path: str, device: str | torch.device = "cuda"
+) -> Tuple[Params, DecoderSpec, Optional[torch.Tensor]]:
+    """Load a directory written by `save_distributed_checkpoint`: (params,
+    spec, latent codes or None), the tensors on `device`."""
+    import torch.distributed.checkpoint as dcp
+
+    dev = resolve_device(device)
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    tree = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in meta.items()}
+    dcp.load(tree, checkpoint_id=path)
+    spec = DecoderSpec(
+        code_length=int(tree["spec.code_length"]),
+        dims=tuple(int(d) for d in tree["spec.dims"]),
+        latent_in=tuple(int(i) for i in tree["spec.latent_in"]),
+        clamping_distance=float(tree["spec.clamping_distance"]),
+    )
+    params: Params = {}
+    while f"params.lin{len(params)}.w" in tree:
+        name = f"lin{len(params)}"
+        params[name] = {k: tree[f"params.{name}.{k}"].to(dev) for k in ("w", "b")}
+    codes = tree.get("latent_codes")
+    return params, spec, (None if codes is None else codes.to(dev))
 
 
 def load_native_checkpoint(path: str, device: str | torch.device = "cuda") -> Tuple[Params, DecoderSpec]:

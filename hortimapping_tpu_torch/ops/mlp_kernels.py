@@ -16,6 +16,7 @@ chain (not autograd) with the same roundings.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -35,10 +36,17 @@ STAGE_K_F32 = 8
 STREAM_NAMES = ("fwd_stream", "bwd_stream", "wl", "b0", "bm")
 
 # launches of each CUDA kernel since its count was last set to 0: B1
-# (fwd+input grad), B3 (forward), B4 (shared-latent forward)
+# (fwd+input grad), B3 (forward), B4 (shared-latent forward); shards of the
+# fruit mesh launch from several threads, so each count moves under the lock
 launches = 0
 launches_fwd = 0
 launches_shared_latent = 0
+_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _lock:
+        globals()[name] += 1
 
 
 def supported(spec: DecoderSpec) -> bool:
@@ -294,9 +302,10 @@ def _entry(name: str):
     argument types declared."""
     fn_name, argtypes = _ENTRIES[name]
     fn = getattr(cuda_build.load(name), fn_name)
-    if name not in _bound:
-        fn.restype, fn.argtypes = ctypes.c_int, argtypes
-        _bound.add(name)
+    with _lock:
+        if name not in _bound:
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            _bound.add(name)
     return fn
 
 
@@ -319,11 +328,18 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(entry, t: torch.Tensor, *args) -> int:
+    """Call a kernel's C entry with the CUDA runtime's current device set to
+    `t`'s device (the launch goes to the current device, whatever stream it
+    is given) and `t`'s current stream as its last argument."""
+    with torch.cuda.device(t.device):
+        return entry(*args, _stream(t))
+
+
 def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor,
                    active: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1 on rows x [N, in_dim]: `active` None, or [B] f32 with N = B x rows
     a lane (a block of a frozen lane writes zeros)."""
-    global launches
     _check_packed(pk, x)
     n = x.shape[0]
     lanes = 1 if active is None else active.shape[0]
@@ -331,13 +347,14 @@ def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor,
         raise ValueError("lane_active must lie on the inputs' device")
     sdf = torch.empty(n, dtype=torch.float32, device=x.device)
     grad = torch.empty(n, pk.in_dim, dtype=torch.float32, device=x.device)
-    rc = _entry("mlp_fwd_grad")(
+    rc = launch(
+        _entry("mlp_fwd_grad"), x,
         x.data_ptr(), n // lanes, lanes, None if active is None else active.data_ptr(),
         pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
-        sdf.data_ptr(), grad.data_ptr(), _stream(x),
+        sdf.data_ptr(), grad.data_ptr(),
     )
     cuda_build.check(rc, "horti_mlp_fwd_grad")
-    launches += 1
+    _count("launches")
     return sdf, grad
 
 
@@ -355,23 +372,22 @@ def _fwd_grad_plain(pk: PackedDecoder, x: torch.Tensor,
 
 def _fwd_cuda(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
     """B3 on rows x [N, in_dim]."""
-    global launches_fwd
     _check_packed(pk, x)
     n = x.shape[0]
     sdf = torch.empty(n, dtype=torch.float32, device=x.device)
-    rc = _entry("mlp_fwd")(
+    rc = launch(
+        _entry("mlp_fwd"), x,
         x.data_ptr(), n, pk.in_dim, pk.D, pk.n_mid, pk.li, int(pk.bf16),
-        *pk.stream_ptrs(), pk.bl, sdf.data_ptr(), _stream(x),
+        *pk.stream_ptrs(), pk.bl, sdf.data_ptr(),
     )
     cuda_build.check(rc, "horti_mlp_fwd")
-    launches_fwd += 1
+    _count("launches_fwd")
     return sdf
 
 
 def _shared_latent_cuda(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """B4: every point of pts [N, 3] under every code of latents [B, C], in
     B x ceil(N / 64) chunks that never span two codes."""
-    global launches_shared_latent
     B, N = latents.shape[0], pts.shape[0]
     if B * -(-N // 64) > MAX_CHUNKS:
         raise ValueError(f"at most {MAX_CHUNKS} chunks of 64 points a launch, got {B} codes x {N}")
@@ -379,12 +395,13 @@ def _shared_latent_cuda(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Ten
     if latents.device != pts.device:
         raise ValueError("latents and pts must lie on one device")
     out = torch.empty(B, N, dtype=torch.float32, device=pts.device)
-    rc = _entry("mlp_shared_latent")(
+    rc = launch(
+        _entry("mlp_shared_latent"), pts,
         latents.data_ptr(), B, pts.data_ptr(), N, pk.in_dim, pk.D, pk.n_mid, pk.li,
-        int(pk.bf16), *pk.stream_ptrs(), pk.bl, out.data_ptr(), _stream(pts),
+        int(pk.bf16), *pk.stream_ptrs(), pk.bl, out.data_ptr(),
     )
     cuda_build.check(rc, "horti_mlp_shared_latent")
-    launches_shared_latent += 1
+    _count("launches_shared_latent")
     return out
 
 

@@ -19,6 +19,7 @@ frame-level `min_valid_sample` gate is the caller's epilogue.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -34,10 +35,17 @@ REC_FLOATS = 8              # floats a band record (fused_render.cu kRec)
 
 # launches of the three CUDA kernels since the counts were last set to 0:
 # forward + render (one per call: the count of the TPU kernel's port), band
-# backward, per-ray sums
+# backward, per-ray sums; each moves under the lock (shards of the fruit mesh
+# launch from several threads)
 launches = 0
 launches_band = 0
 launches_sum = 0
+_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _lock:
+        globals()[name] += 1
 
 
 def _round_up(v: int, m: int) -> int:
@@ -151,34 +159,35 @@ _argtypes_set = False
 def _lib() -> ctypes.CDLL:
     global _argtypes_set
     lib = cuda_build.load("fused_render")
-    if not _argtypes_set:
-        p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        streams = [p, p, p, p, p, fl]          # fwd, bwd, wl, b0, bm, bl
-        lib.horti_render_forward.restype = i
-        lib.horti_render_forward.argtypes = [
-            p, p, p, p, p, p,                  # pts, rinfo, depths, fscal, active, latent
-            i, i, i, i, i, i, i,               # B, F, R, M, C, tr, tiles_x
-            i, i, i,                           # pose_dim, log_occ_on, occlusion_on
-            fl, fl, fl, fl,                    # occ_cutoff, sigma, occlusion_th, min_grad_th
-            i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
-            p, p, p, p,                        # res, recs, counts, stream
-        ]
-        lib.horti_render_band.restype = i
-        lib.horti_render_band.argtypes = [
-            p, p, i, i, p,                     # recs, offsets, n_tiles, cap, latent
-            i, i, i,                           # C, pose_dim, rays_per_fruit
-            i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
-            p, p, p,                           # cd, cm, stream
-        ]
-        lib.horti_render_sum.restype = i
-        lib.horti_render_sum.argtypes = [
-            p, p, p, p, p,                     # recs, offsets, cd, cm, res
-            i, i, i, i, i, i, i,               # B, F, R, tr, tiles_x, cap, J
-            p, p, p,                           # jd, jm, stream
-        ]
-        lib.horti_render_smem.restype = ctypes.c_long
-        lib.horti_render_smem.argtypes = [i] * 7
-        _argtypes_set = True
+    with _lock:   # declared once, before any thread calls an entry
+        if not _argtypes_set:
+            p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            streams = [p, p, p, p, p, fl]          # fwd, bwd, wl, b0, bm, bl
+            lib.horti_render_forward.restype = i
+            lib.horti_render_forward.argtypes = [
+                p, p, p, p, p, p,                  # pts, rinfo, depths, fscal, active, latent
+                i, i, i, i, i, i, i,               # B, F, R, M, C, tr, tiles_x
+                i, i, i,                           # pose_dim, log_occ_on, occlusion_on
+                fl, fl, fl, fl,                    # occ_cutoff, sigma, occlusion_th, min_grad_th
+                i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
+                p, p, p, p,                        # res, recs, counts, stream
+            ]
+            lib.horti_render_band.restype = i
+            lib.horti_render_band.argtypes = [
+                p, p, i, i, p,                     # recs, offsets, n_tiles, cap, latent
+                i, i, i,                           # C, pose_dim, rays_per_fruit
+                i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
+                p, p, p,                           # cd, cm, stream
+            ]
+            lib.horti_render_sum.restype = i
+            lib.horti_render_sum.argtypes = [
+                p, p, p, p, p,                     # recs, offsets, cd, cm, res
+                i, i, i, i, i, i, i,               # B, F, R, tr, tiles_x, cap, J
+                p, p, p,                           # jd, jm, stream
+            ]
+            lib.horti_render_smem.restype = ctypes.c_long
+            lib.horti_render_smem.argtypes = [i] * 7
+            _argtypes_set = True
     return lib
 
 
@@ -226,7 +235,6 @@ def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_rad
                    occlusion_on, occlusion_th, min_grad_th) -> RenderLaunches:
     """Launch 1: the forward and the render math of every tile; the
     residuals and each tile's band records."""
-    global launches
     B, F, R, M, _ = pts.shape
     C = latent.shape[-1]
     dev = pts.device
@@ -257,17 +265,17 @@ def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_rad
     res = torch.empty(B, F, R, 4, dtype=f32, device=dev)
     recs = torch.empty(n_tiles, tr * M, REC_FLOATS, dtype=f32, device=dev)
     counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    rc = _lib().horti_render_forward(
+    rc = mlp_kernels.launch(
+        _lib().horti_render_forward, pts,
         pts.data_ptr(), rinfo.data_ptr(), depths.data_ptr(), fscal.data_ptr(),
         active.data_ptr(), latent.data_ptr(),
         B, F, R, M, C, tr, tiles_x, pose_dim, int(log_occ_on), int(occlusion_on),
         occ_cutoff, logistic_sigma(occ_cutoff), occlusion_th, min_grad_th,
         pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
         res.data_ptr(), recs.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "horti_render_forward")
-    launches += 1
+    _count("launches")
     return RenderLaunches(B, F, R, M, C, pose_dim + C, tr, tiles_x, res, recs, counts)
 
 
@@ -285,19 +293,19 @@ def render_band(pk, latent, rl: RenderLaunches, offsets: torch.Tensor,
     rows, in full 64-row chunks. Their number, offsets[-1], is read on the
     card (the host never waits for it), so cd and cm [n_tiles x cap, J]
     hold the worst case; rows past offsets[-1] are left unwritten."""
-    global launches_band
     dev = rl.res.device
     rows = rl.counts.shape[0] * rl.tr * rl.M
     cd = torch.empty(rows, rl.J, dtype=torch.float32, device=dev)
     cm = torch.empty(rows, rl.J, dtype=torch.float32, device=dev)
-    rc = _lib().horti_render_band(
+    rc = mlp_kernels.launch(
+        _lib().horti_render_band, rl.res,
         rl.recs.data_ptr(), offsets.data_ptr(), rl.counts.shape[0], rl.tr * rl.M,
         latent.contiguous().data_ptr(), rl.C, pose_dim, rl.F * rl.R,
         pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
-        cd.data_ptr(), cm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        cd.data_ptr(), cm.data_ptr(),
     )
     cuda_build.check(rc, "horti_render_band")
-    launches_band += 1
+    _count("launches_band")
     return cd, cm
 
 
@@ -305,17 +313,16 @@ def render_sum(rl: RenderLaunches, offsets: torch.Tensor, cd: torch.Tensor,
                cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch 3: jd, jm [B, F, R, J], each ray's contributions summed in
     sample order, times ray_ok."""
-    global launches_sum
     dev = rl.res.device
     jd = torch.empty(rl.B, rl.F, rl.R, rl.J, dtype=torch.float32, device=dev)
     jm = torch.empty_like(jd)
-    rc = _lib().horti_render_sum(
+    rc = mlp_kernels.launch(
+        _lib().horti_render_sum, rl.res,
         rl.recs.data_ptr(), offsets.data_ptr(), cd.data_ptr(), cm.data_ptr(), rl.res.data_ptr(),
         rl.B, rl.F, rl.R, rl.tr, rl.tiles_x, rl.tr * rl.M, rl.J, jd.data_ptr(), jm.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "horti_render_sum")
-    launches_sum += 1
+    _count("launches_sum")
     return jd, jm
 
 

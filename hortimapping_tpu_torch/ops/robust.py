@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -12,3 +14,9 @@ def huber_weights(res_norm: torch.Tensor, b: float) -> torch.Tensor:
     rho = torch.where(x <= b, x * x, 2.0 * b * x - b * b)
     x_safe = torch.where(x == 0.0, torch.ones_like(x), x)
     return torch.sqrt(torch.clamp(rho, min=0.0)) / x_safe
+
+
+def robust_residuals(res: torch.Tensor, b: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w * r, w^2); w^2 reweights J^T J and J^T r in the normal equations."""
+    w = huber_weights(res, b)
+    return w * res, w * w

@@ -5,10 +5,12 @@ adaptive trust-region solver (`trust_region`), the two-resolution schedule,
 the code-frozen pose polish, the staged solve, the chunked solve, the
 code-only DeepSDF baseline (`shape_opt_deepsdf(_batched)`), the single-fruit
 solvers (`shape_pose_joint_opt(_traced)`) and the serving solve
-(`joint_opt_packed`). The JAX
+(`joint_opt`, `joint_opt_packed`). The JAX
 `vmap` over fruits is the leading [B] axis of every tensor; its
 `lax.while_loop` with frozen lanes is a Python loop that steps every lane
-until all are done or failed (one host sync per iteration, for that test).
+until all are done or failed (one host sync per iteration, for that test:
+`parallel/sharding.host_read`, where a shard of the fruit mesh hands the
+host to the other shards while it waits).
 Frozen lanes keep their state bit for bit.
 
 The render term runs through the fused render kernel and the SDF term
@@ -34,7 +36,7 @@ from hortimapping_tpu_torch.ops.recon import sdf_residuals
 from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals, takes_fused
 from hortimapping_tpu_torch.ops.robust import huber_weights
 from hortimapping_tpu_torch.optim.state import FruitObservations, OptResult, OptState, init_state
-from hortimapping_tpu_torch.parallel.sharding import pad_to_multiple
+from hortimapping_tpu_torch.parallel.sharding import host_read, pad_to_multiple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,7 +444,7 @@ def _tr_result(final: TrState) -> OptResult:
 def _solve_batched(params, spec, cfg, obs, s0: OptState, cube_radius, pose_known, packs,
                    code_known: bool = False):
     s = s0
-    while bool((~(s.done | s.failed)).any()):
+    while host_read((~(s.done | s.failed)).any()):
         new = lm_iteration(params, spec, cfg, obs, s, cube_radius, pose_known, packs, code_known)
         s = _freeze_if_done(s, new)
     return OptResult(s.latent, s.T_ow, s.iter_count, s.failed, s.converged)
@@ -450,7 +452,7 @@ def _solve_batched(params, spec, cfg, obs, s0: OptState, cube_radius, pose_known
 
 def _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs):
     ts = init_tr_state(latent0, T_ow0, cfg)
-    while bool((~(ts.base.done | ts.base.failed)).any()):
+    while host_read((~(ts.base.done | ts.base.failed)).any()):
         ts = _freeze_if_done_tr(ts, lm_iteration_tr(params, spec, cfg, obs, ts, cube_radius,
                                                     pose_known, packs))
     return _tr_result(ts)
@@ -849,6 +851,39 @@ def shape_pose_joint_opt_traced(
     return res, (torch.stack(latents), torch.stack(poses))
 
 
+def joint_opt(
+    params: Params,
+    spec: DecoderSpec,
+    cfg: JointOptConfig,
+    obs: FruitObservations,   # leading fruit axis
+    latent0: torch.Tensor,    # [B, C]
+    T_ow0: torch.Tensor,      # [B, 4, 4]
+    cube_radius: float,
+    pose_known: bool = False,
+    latent_table: Optional[torch.Tensor] = None,
+    device: str | torch.device = "cuda",
+    packs: Optional[Packs] = None,
+) -> OptResult:
+    """The single-start solve of serving and of each shard of the fruit mesh
+    (`parallel/sharding.shard_joint_opt`): the retrieval warm start where
+    `cfg.init_mode` is "retrieval" and a `latent_table` is given, then the
+    configured solver (coarse-to-fine or single phase), then the configured
+    pose polish. `packs` lets a caller that solves many batches pack the
+    weights once (with the scoring decoder where it retrieves)."""
+    dev, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
+    retrieve = cfg.init_mode == "retrieval" and latent_table is not None
+    if packs is None:
+        packs = make_packs(params, spec, cfg, score=retrieve)
+    if retrieve:
+        from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
+
+        latent0, T_ow0 = maybe_retrieval_init(params, spec, cfg, latent_table, obs, latent0,
+                                              T_ow0, dev, packs)
+    solver = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
+    res = solver(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, dev, packs)
+    return maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known, dev, packs)
+
+
 def joint_opt_packed(
     params: Params,
     spec: DecoderSpec,
@@ -862,23 +897,9 @@ def joint_opt_packed(
     device: str | torch.device = "cuda",
     packs: Optional[Packs] = None,
 ) -> Tuple[OptResult, torch.Tensor]:
-    """The serving solve, returning (result, `pack_result(result)`): the
-    retrieval warm start where `cfg.init_mode` is "retrieval" and a
-    `latent_table` is given, then the configured solver (coarse-to-fine or
-    single phase), then the configured pose polish. The packed result is
-    one device buffer, so a batch's solve crosses to the host in one copy.
-    `packs` lets a caller that solves many batches pack the weights once
-    (with the scoring decoder where it retrieves)."""
-    dev, obs, latent0, T_ow0 = _prepare(device, cfg, obs, latent0, T_ow0)
-    retrieve = cfg.init_mode == "retrieval" and latent_table is not None
-    if packs is None:
-        packs = make_packs(params, spec, cfg, score=retrieve)
-    if retrieve:
-        from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init
-
-        latent0, T_ow0 = maybe_retrieval_init(params, spec, cfg, latent_table, obs, latent0,
-                                              T_ow0, dev, packs)
-    solver = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
-    res = solver(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, dev, packs)
-    res = maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known, dev, packs)
+    """The serving solve, returning (result, `pack_result(result)`): `joint_opt`
+    with its result packed into one device buffer, so a batch's solve
+    crosses to the host in one copy."""
+    res = joint_opt(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known,
+                    latent_table, device, packs)
     return res, pack_result(res)

@@ -15,10 +15,11 @@ Three phases, in the JAX package's order and semantics:
 2. one batched `warmstart_solve` of all prepared fruits on the device or,
    with an interactive visualizer (`vis.interactive`), `solve_interactive`:
    each fruit solved alone with every LM iteration's mesh replayed in the
-   window;
+   window; or, over a fruit mesh of more than one shard (`mesh=`, or every
+   card when more than one is visible), the single-start retrieval warm
+   start and `shard_joint_opt`, with no rescue and no multi-start, as the
+   JAX package's multi-device branch;
 3. outlier gates, one batched grid decode and host meshing, the outputs.
-The JAX package's multi-device branch is not ported; one card takes the
-batched solve.
 
 Run:  python -m hortimapping_tpu_torch.pipeline.wild -c configs/wild_pepper_tpu.yaml
 """
@@ -46,6 +47,7 @@ from hortimapping_tpu_torch.ops.mesher import MeshExtractor
 from hortimapping_tpu_torch.optim.lm import shape_pose_joint_opt_traced
 from hortimapping_tpu_torch.optim.state import OptResult, stack_observations
 from hortimapping_tpu_torch.optim.warmstart import maybe_retrieval_init, warmstart_solve
+from hortimapping_tpu_torch.parallel.sharding import FruitMesh, fruit_mesh, shard_joint_opt
 from hortimapping_tpu_torch.utils.misc import set_random_seed, trace_if_enabled
 from hortimapping_tpu_torch.vis import color_table, make_visualizer
 
@@ -215,8 +217,11 @@ def solve_interactive(params, spec, opt_cfg: JointOptConfig, latent_table: torch
     return OptResult(*(torch.stack(field) for field in zip(*outs)))
 
 
-def run_wild_completion(cfg: Dict, log=print,
-                        device: str | torch.device = "cuda") -> List[FruitResult]:
+def run_wild_completion(cfg: Dict, log=print, device: str | torch.device = "cuda",
+                        mesh: Optional[FruitMesh] = None) -> List[FruitResult]:
+    """The pipeline on `device` (results gathered there); phase 2 shards the
+    batch over `mesh` where it has more than one shard (default: every card
+    when more than one is visible)."""
     dev = resolve_device(device)
     set_random_seed(42)
     opt_cfg = JointOptConfig.from_dict(cfg)
@@ -269,10 +274,17 @@ def run_wild_completion(cfg: Dict, log=print,
     T0 = torch.as_tensor(np.stack([p.T_ow0 for p in prepared]).astype(np.float32)).to(dev)
     mesher = MeshExtractor(params, spec, voxels_dim, object_radius_max_m,
                            method=vis_cfg.get("iso_method", "mt"), device=dev)
+    n_dev = (mesh.size if mesh is not None
+             else torch.cuda.device_count() if dev.type == "cuda" else 1)
     with trace_if_enabled("wild_joint_opt"):
         if getattr(vis, "interactive", False):
             res = solve_interactive(params, spec, opt_cfg, latents_train, obs_b, lat0, T0,
                                     prepared, mesher, vis, object_radius_max_m, dev)
+        elif n_dev > 1:
+            lat0, T0 = maybe_retrieval_init(params, spec, opt_cfg, latents_train, obs_b, lat0, T0,
+                                            device=dev)
+            res = shard_joint_opt(params, spec, opt_cfg, obs_b, lat0, T0, object_radius_max_m,
+                                  mesh or fruit_mesh(), device=dev)
         else:
             res = warmstart_solve(params, spec, opt_cfg, latents_train, obs_b, lat0, T0,
                                   object_radius_max_m, device=dev)

@@ -19,14 +19,16 @@ packed solve (`optim/lm.joint_opt_packed`):
     results cross to the host in one copy, and iso-surfaces them on the
     host.
 
+With a fruit mesh (`use_mesh`, on by default where more than one card is
+visible) each batch is sharded over the mesh
+(`parallel/sharding.shard_joint_opt`): batch widths are multiples of the
+mesh size and `max_batch` rounds up to one.
+
 Unlike the JAX package's worker, this one completes each batch before it
 packs the next: the LM loop reads its convergence flags back once an
 iteration, so a one-deep pipeline would overlap nothing on the card (batch
 k's copy would queue behind batch k+1's grid decode on the one stream) and
 would hold batch k's results until batch k+1 is solved.
-
-No counterpart of the JAX package's fruit-parallel mesh: `use_mesh=True`
-raises (`ROADMAP.md` Queue A, fruit-parallel execution across GPUs).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 from hortimapping_tpu_torch.optim import lm
 from hortimapping_tpu_torch.optim.state import FruitObservations, upload
+from hortimapping_tpu_torch.parallel.sharding import FruitMesh, fruit_mesh, shard_joint_opt
 
 
 @dataclasses.dataclass
@@ -140,7 +143,9 @@ def _shape_key(req: CompletionRequest) -> Tuple:
 class CompletionServer:
     """Queue and batch packer in front of the batched packed solve, on
     `device` (CUDA unless the caller asks for the CPU; `params` and
-    `latent_table` live there).
+    `latent_table` live there, and results are gathered there). `use_mesh`:
+    None shards each batch over every card when more than one is visible,
+    True over `mesh` (default `fruit_mesh()`), False never.
 
     Usage::
 
@@ -162,6 +167,7 @@ class CompletionServer:
         max_queue: Optional[int] = None,
         latent_table=None,
         device: str | torch.device = "cuda",
+        mesh: Optional[FruitMesh] = None,
     ):
         self.params = params
         self.spec = spec
@@ -180,17 +186,22 @@ class CompletionServer:
                 "CompletionServer does not support opt.tpu.multi_start > 1; "
                 "use the batch pipelines (optim/warmstart.warmstart_solve) "
                 "or set multi_start: 1 in the serving config")
-        if use_mesh:
-            raise NotImplementedError(
-                "fruit-parallel serving across GPUs is not ported (ROADMAP.md Queue A, "
-                "fruit-parallel execution across GPUs); one card serves every batch")
         cfg.check_ported()
         self.device = resolve_device(device)
         self.latent_table = (None if latent_table is None
                              else torch.as_tensor(latent_table).to(self.device))
-        self._packs = lm.make_packs(params, spec, cfg, score=self.latent_table is not None)
+        if use_mesh is None:
+            use_mesh = self.device.type == "cuda" and torch.cuda.device_count() > 1
+        self.mesh = (mesh or fruit_mesh()) if use_mesh else None
+        if self.mesh is not None and self.mesh.world_size > 1:
+            raise ValueError("a server shards its batches over this process's devices; "
+                             "a mesh that spans processes needs every process to pass the batch")
+        self._packs = (None if self.mesh is not None else
+                       lm.make_packs(params, spec, cfg, score=self.latent_table is not None))
         self.cube_radius = float(cube_radius)
         self.max_batch = int(max_batch)
+        if self.mesh is not None:
+            self.max_batch = -(-self.max_batch // self.mesh.size) * self.mesh.size
         self.max_wait_s = float(max_wait_s)
         self.mesher = mesher
         # admission control: a bound on requests in flight (queued and being
@@ -303,12 +314,15 @@ class CompletionServer:
 
     def _batch_width(self, n: int) -> int:
         """Solve width of an n-request batch: the next power of two, capped
-        at max_batch. The worker and warmup() share it, so every width the
-        worker uses is warm."""
+        at max_batch, rounded up to a multiple of the mesh size. The worker
+        and warmup() share it, so every width the worker uses is warm."""
         target = 1
         while target < n:
             target *= 2
-        return min(target, self.max_batch)
+        target = min(target, self.max_batch)
+        if self.mesh is not None:
+            target = -(-target // self.mesh.size) * self.mesh.size
+        return target
 
     def warmup(self, sample) -> None:
         """Build the kernels (on the card, one nvcc per source, in parallel)
@@ -344,12 +358,19 @@ class CompletionServer:
             packed.cpu()
 
     def _solve(self, obs, lat0, T0, pose_known: bool):
-        """One host batch (`_assemble_batch_np`) through the packed solve."""
+        """One host batch (`_assemble_batch_np`) through the packed solve,
+        sharded over the mesh where there is one: (result, packed result)."""
         dev = self.device
-        return lm.joint_opt_packed(
-            self.params, self.spec, self.cfg, FruitObservations(*(upload(a, dev) for a in obs)),
-            upload(lat0, dev), upload(T0, dev), self.cube_radius, pose_known,
-            latent_table=self.latent_table, device=dev, packs=self._packs)
+        obs = FruitObservations(*(upload(a, dev) for a in obs))
+        lat0, T0 = upload(lat0, dev), upload(T0, dev)
+        if self.mesh is None:
+            return lm.joint_opt_packed(self.params, self.spec, self.cfg, obs, lat0, T0,
+                                       self.cube_radius, pose_known,
+                                       latent_table=self.latent_table, device=dev,
+                                       packs=self._packs)
+        res = shard_joint_opt(self.params, self.spec, self.cfg, obs, lat0, T0, self.cube_radius,
+                              self.mesh, pose_known, latent_table=self.latent_table, device=dev)
+        return res, lm.pack_result(res)
 
     def stats(self) -> Dict:
         with self._lock:
@@ -362,7 +383,7 @@ class CompletionServer:
             "latency_p50_s": lat[len(lat) // 2] if lat else 0.0,
             "latency_p95_s": lat[int(len(lat) * 0.95)] if lat else 0.0,
             "queued": self._q.qsize() + self._pending_count(),
-            "devices": 1,
+            "devices": 1 if self.mesh is None else self.mesh.size,
             "inflight": self._inflight,
             "deadline_expired": self._expired,
         }

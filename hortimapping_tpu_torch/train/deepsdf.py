@@ -26,6 +26,15 @@ latent table are two Adam groups under the two step-decay schedules of
 epoch); `CodeBound` projects the codes after each update. The decoder runs
 as the plain `decoder_apply` under autograd (cuBLAS products on the card);
 no kernel of the port is on this path.
+
+Data-parallel over a fruit mesh (`mesh=`): the scene batch is split over
+the shards (ScenesPerBatch / shards each, rounded up), each shard draws its
+own scenes on its own generator (shard 0 on the run's, shard i on one
+seeded from (seed, i)) and computes its loss and gradients in its own host
+thread on its own replica; the losses and gradients are averaged in shard
+order on the first shard's device, which holds the one master copy of the
+parameters, the codes and both Adam groups (shard 0 works on it), and the
+one update is copied to the other shards' replicas.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from hortimapping_tpu_torch.models.decoder import (
     init_decoder_params,
 )
 from hortimapping_tpu_torch.models.workspace import NATIVE_SUBDIR, load_specs, save_native_checkpoint
+from hortimapping_tpu_torch.parallel.sharding import run_shards
 
 TRAIN_STATE_FILE = "train_state.npz"
 # marks the port's snapshots: the JAX trainer's file of the same name holds
@@ -152,12 +162,20 @@ def _draw_step(generator: torch.Generator, n_scenes: int, scenes: int, half: int
     return scene_ids, draw(pos_n), draw(neg_n)
 
 
+def _shard_generator(seed: int, shard: int, device: torch.device) -> torch.Generator:
+    """The draw generator of shard `shard` > 0 of a data-parallel run, seeded
+    from (seed, shard) without touching numpy's global generator."""
+    state = np.random.SeedSequence([seed, shard]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def _save_train_state(experiment_directory: str, params: Params, codes: torch.Tensor,
-                      opt: torch.optim.Adam, generator: torch.Generator, epoch: int,
+                      opt: torch.optim.Adam, generators: Sequence[torch.Generator], epoch: int,
                       losses: Sequence[float]) -> str:
     """Persist the whole training state (params, codes, both Adam groups'
-    moments and step counts, the generator state), the epoch and the loss
-    history, atomically: a temp file renamed over the last snapshot."""
+    moments and step counts, each shard's generator state), the epoch and
+    the loss history, atomically: a temp file renamed over the last
+    snapshot."""
     arrays = {"format": np.asarray(STATE_FORMAT)}
     for name, p in params.items():
         for k in ("w", "b"):
@@ -166,7 +184,10 @@ def _save_train_state(experiment_directory: str, params: Params, codes: torch.Te
     for i, st in opt.state_dict()["state"].items():
         for k, v in st.items():
             arrays[f"adam.{i}.{k}"] = v.detach().cpu().numpy()
-    arrays["generator"] = generator.get_state().numpy()
+    arrays["generator"] = generators[0].get_state().numpy()
+    for i, g in enumerate(generators[1:], 1):
+        arrays[f"generator.{i}"] = g.get_state().numpy()
+    arrays["shards"] = np.asarray(len(generators), np.int64)
     arrays["epoch"] = np.asarray(int(epoch), np.int64)
     arrays["losses"] = np.asarray(losses, np.float64)
     path = _train_state_path(experiment_directory)
@@ -178,10 +199,11 @@ def _save_train_state(experiment_directory: str, params: Params, codes: torch.Te
 
 
 def _load_train_state(experiment_directory: str, params: Params, codes: torch.Tensor,
-                      opt: torch.optim.Adam, generator: torch.Generator):
+                      opt: torch.optim.Adam, generators: Sequence[torch.Generator]):
     """Restore a snapshot of `_save_train_state` into the given state in
-    place -> (epoch, losses). Refuses another package's snapshot and one
-    whose shapes do not match this experiment."""
+    place -> (epoch, losses). Refuses another package's snapshot, one whose
+    shapes do not match this experiment and one of another number of
+    shards."""
     path = _train_state_path(experiment_directory)
     with np.load(path) as z:
         if "format" not in z.files or str(z["format"]) != STATE_FORMAT:
@@ -191,6 +213,10 @@ def _load_train_state(experiment_directory: str, params: Params, codes: torch.Te
                 "scratch")
         want = {f"params.{name}.{k}": p[k] for name, p in params.items() for k in ("w", "b")}
         want["codes"] = codes
+        shards = int(z["shards"]) if "shards" in z.files else 1
+        if shards != len(generators):
+            raise ValueError(f"{path} was written by a run on {shards} shards, not "
+                             f"{len(generators)}: the draws would differ")
         saved = {k for k in z.files if k.startswith("params.")} | {"codes"}
         if saved != set(want):
             raise ValueError(f"{path} holds other layers than the experiment's: {_STALE}")
@@ -209,7 +235,9 @@ def _load_train_state(experiment_directory: str, params: Params, codes: torch.Te
             if keys:
                 sd["state"][i] = {k.split(".", 2)[2]: torch.as_tensor(z[k]) for k in keys}
         opt.load_state_dict(sd)
-        generator.set_state(torch.as_tensor(z["generator"]))
+        generators[0].set_state(torch.as_tensor(z["generator"]))
+        for i, g in enumerate(generators[1:], 1):
+            g.set_state(torch.as_tensor(z[f"generator.{i}"]))
         epoch = int(z["epoch"])
         losses = [float(x) for x in z["losses"]]
     return epoch, losses
@@ -245,13 +273,16 @@ def train_deepsdf(
     snapshot boundaries, so `resume=True` replays the same chunking and
     continues bit for bit on the CPU. On the card it is held to rounding
     only: PyTorch does not promise a CUDA backward's summation order.
-    `mesh` (data-parallel training) is not ported.
+
+    `mesh` (`parallel/sharding.FruitMesh`): data-parallel over its shards
+    (module docstring), the master state on its first device in place of
+    `device`; a mesh that spans processes is not supported.
     """
-    if mesh is not None:
+    if mesh is not None and mesh.world_size > 1:
         raise NotImplementedError(
-            "data-parallel training (mesh=) is not ported to the PyTorch package: "
-            "ROADMAP.md Queue A, 'Multi-GPU'")
-    dev = resolve_device(device)
+            "data-parallel training over a mesh that spans processes is not ported: "
+            "ROADMAP.md Queue A, 'Multi-process training'")
+    dev = resolve_device(mesh.devices[0] if mesh is not None else device)
     specs = load_specs(experiment_directory)
     spec = DecoderSpec.from_specs_json(specs)
     data_source = data_source or specs.get("DataSource")
@@ -278,6 +309,13 @@ def train_deepsdf(
     scenes_per_batch = min(scenes_per_batch, S)
     steps_per_epoch = max(1, S // scenes_per_batch)
     half = samples_per_scene // 2
+    shards = [resolve_device(d) for d in mesh.devices] if mesh is not None else [dev]
+    # each shard's share of the global scene batch, rounded up: flooring
+    # would shrink the effective ScenesPerBatch against specs.json
+    scenes_local = max(1, -(-scenes_per_batch // len(shards)))
+    if mesh is not None and scenes_local * len(shards) != scenes_per_batch:
+        log(f"[train] ScenesPerBatch={scenes_per_batch} is not divisible by {len(shards)} "
+            f"devices; rounding the global scene batch up to {scenes_local * len(shards)}")
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_decoder_params(spec, gen, dev)
@@ -289,17 +327,27 @@ def train_deepsdf(
     # the code table is one dense parameter: rows not drawn in a step still
     # move with their moments, as optax moves them
     opt = torch.optim.Adam([{"params": net, "lr": net_lr0}, {"params": [codes], "lr": cod_lr0}])
-    pos_d, neg_d = torch.as_tensor(pos).to(dev), torch.as_tensor(neg).to(dev)
-    pos_nd, neg_nd = torch.as_tensor(pos_n).to(dev), torch.as_tensor(neg_n).to(dev)
+    gens = [gen] + [_shard_generator(seed, i, d) for i, d in enumerate(shards[1:], 1)]
+    # the sample banks once a device; the parameters and codes: shard 0's
+    # are the master, every other shard differentiates a replica of its own
+    # (shards of one device share no autograd leaf across threads)
+    banks = {d: tuple(torch.as_tensor(a).to(d) for a in (pos, neg, pos_n, neg_n))
+             for d in dict.fromkeys(shards)}
+    replicas = [(params, codes)] + [
+        ({k: {kk: v.detach().to(d).requires_grad_(True) for kk, v in p.items()}
+          for k, p in params.items()}, codes.detach().to(d).requires_grad_(True))
+        for d in shards[1:]]
 
-    def step(reg_ramp: float) -> torch.Tensor:
-        scene_ids, pos_idx, neg_idx = _draw_step(gen, S, scenes_per_batch, half, pos_nd, neg_nd)
+    def shard_loss(p: Params, cz: torch.Tensor, d: torch.device, draw,
+                   reg_ramp: float) -> torch.Tensor:
+        scene_ids, pos_idx, neg_idx = draw
+        pos_d, neg_d = banks[d][:2]
         rows = scene_ids[:, None]
         samples = torch.cat([pos_d[rows, pos_idx], neg_d[rows, neg_idx]], dim=1)
         xyz, sdf_gt = samples[..., :3], samples[..., 3].clamp(-clamp, clamp)
-        z = codes[scene_ids]
+        z = cz[scene_ids]
         inp = torch.cat([z[:, None, :].expand(-1, xyz.shape[1], -1), xyz], dim=-1)
-        pred = decoder_apply(params, spec, inp)[..., 0]
+        pred = decoder_apply(p, spec, inp)[..., 0]
         # straight-through clamp (module docstring): a hard clamp has zero
         # gradient outside the band, and Adam's normalised steps push the
         # mean prediction past it within a few steps at full width, after
@@ -308,14 +356,57 @@ def train_deepsdf(
         loss = torch.mean(torch.abs(pred - sdf_gt))
         if code_reg:
             loss = loss + code_reg_lambda * reg_ramp * torch.mean(torch.sum(z * z, dim=-1))
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        return loss
+
+    def leaves(p: Params, cz: torch.Tensor) -> List[torch.Tensor]:
+        return [p_[k] for p_ in p.values() for k in ("w", "b")] + [cz]
+
+    @torch.no_grad()
+    def sync_replicas() -> None:
+        for p, cz in replicas[1:]:
+            for r, m in zip(leaves(p, cz), leaves(params, codes)):
+                r.copy_(m)
+
+    def update(grads: Optional[List[torch.Tensor]] = None) -> None:
+        """The Adam step from the gradients in .grad (or `grads`), the
+        CodeBound projection, and the new values copied to the replicas."""
+        if grads is not None:
+            for leaf, g in zip(leaves(params, codes), grads):
+                leaf.grad = g
         opt.step()
         if code_bound is not None:
             with torch.no_grad():
                 norm = torch.linalg.norm(codes, dim=-1, keepdim=True)
                 codes.mul_(torch.clamp(float(code_bound) / norm.clamp_min(1e-12), max=1.0))
-        return loss.detach()
+        sync_replicas()
+
+    def mean_in_order(ts: List[torch.Tensor]) -> torch.Tensor:
+        acc = ts[0].to(dev, copy=True)
+        for t in ts[1:]:
+            acc.add_(t.to(dev))
+        return acc.div_(len(ts))
+
+    def step(reg_ramp: float) -> torch.Tensor:
+        if mesh is None:
+            draw = _draw_step(gen, S, scenes_per_batch, half, *banks[dev][2:])
+            loss = shard_loss(params, codes, dev, draw, reg_ramp)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            update()
+            return loss.detach()
+        # every shard's draws on the calling thread, in shard order
+        draws = [_draw_step(g, S, scenes_local, half, *banks[d][2:])
+                 for g, d in zip(gens, shards)]
+
+        def shard(i: int):
+            p, cz = replicas[i]
+            loss = shard_loss(p, cz, shards[i], draws[i], reg_ramp)
+            return (loss.detach(),) + tuple(torch.autograd.grad(loss, leaves(p, cz)))
+
+        outs = run_shards(shard, shards, dev)
+        opt.zero_grad(set_to_none=True)
+        update([mean_in_order([o[j] for o in outs]) for j in range(1, len(outs[0]))])
+        return mean_in_order([o[0] for o in outs])
 
     def run_chunk(e0: int, n: int) -> List[float]:
         means = []
@@ -329,7 +420,8 @@ def train_deepsdf(
     losses: list = []
     e = 0
     if resume and os.path.isfile(_train_state_path(experiment_directory)):
-        e, losses = _load_train_state(experiment_directory, params, codes, opt, gen)
+        e, losses = _load_train_state(experiment_directory, params, codes, opt, gens)
+        sync_replicas()
         log(f"resumed at epoch {e}/{num_epochs} from "
             f"{_train_state_path(experiment_directory)}")
     epochs_per_call = max(1, min(int(epochs_per_call), num_epochs))
@@ -341,7 +433,7 @@ def train_deepsdf(
     def snapshot():
         save_native_checkpoint(experiment_directory, checkpoint, params, spec,
                                latent_codes=codes)
-        _save_train_state(experiment_directory, params, codes, opt, gen, e, losses)
+        _save_train_state(experiment_directory, params, codes, opt, gens, e, losses)
 
     while e < num_epochs:
         n = min(epochs_per_call, num_epochs - e)
@@ -372,7 +464,7 @@ def train_deepsdf(
         if snapshot_every:
             # keep the training state current, so a later resume with a
             # larger num_epochs extends this run
-            _save_train_state(experiment_directory, params, codes, opt, gen, e, losses)
+            _save_train_state(experiment_directory, params, codes, opt, gens, e, losses)
         log(f"saved {path}")
     out = {k: {kk: v.detach() for kk, v in p.items()} for k, p in params.items()}
     return TrainResult(out, codes.detach().cpu().numpy(), np.asarray(losses), names, path,

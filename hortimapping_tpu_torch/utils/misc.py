@@ -1,5 +1,6 @@
 """Seeding, timing and tracing helpers (counterpart of
-`hortimapping_tpu/utils/misc.py`), and the optional W&B run summary.
+`hortimapping_tpu/utils/misc.py`), and the optional W&B set-up and run
+summary.
 
 `set_random_seed` seeds Python's and numpy's global generators exactly as
 the JAX package does, because the pipelines' ray sampling draws from numpy's
@@ -8,6 +9,7 @@ global state (`data/rays.get_render_data`), and seeds torch's as well.
 
 from __future__ import annotations
 
+import getpass
 import os
 import random
 import time
@@ -84,6 +86,27 @@ class trace_if_enabled:
             self._prof.export_chrome_trace(os.path.join(self.dir, f"{self.label}.json"))
             self._prof = None
         return False
+
+
+def setup_wandb() -> None:
+    """Cache the W&B API key in `<user>_wandb.key` (asked for on the first
+    run) and put it in `WANDB_API_KEY`, as the reference does; with no
+    `wandb` package (imported only here) a notice, and runs go on without
+    remote logging."""
+    try:
+        import wandb  # noqa: F401
+    except ImportError:
+        print("wandb not installed; remote logging disabled")
+        return
+    key_path = getpass.getuser() + "_wandb.key"
+    if not os.path.exists(key_path):
+        key = input("wandb api key (from https://wandb.ai/authorize): ")
+        with open(key_path, "w") as f:
+            f.write(key)
+    else:
+        print("wandb api key loaded from", key_path)
+    with open(key_path) as f:
+        os.environ["WANDB_API_KEY"] = f.read().rstrip()
 
 
 def wandb_log_summary(project: str, run_name: str, summary: Dict, enabled: bool) -> None:

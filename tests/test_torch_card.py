@@ -617,3 +617,67 @@ def test_one_lane_kernels_match_plain(cuda):
         want = mlp_kernels.mlp_sdf_shared_latent_plain(pk, code.to(cuda), grid)
         assert got.shape == (1, 40 ** 3)
         _held_to_plain(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_kernels_launched_from_threads_match_alone(cuda):
+    """B1, B2 (its three launches), B3 and B4 launched at once from 4 host
+    threads, each on a stream of its own, 3 times each (the fruit mesh's
+    shards launch so): every output equals the same launch made alone, bit
+    for bit, and every launch counter reads exactly 3."""
+    import sys
+    import threading
+
+    params, spec = _decoder("synthetic_pepper_32", 0, cuda)
+    pk32 = mlp_kernels.pack_params(params, spec, torch.float32)
+    pk16 = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(a.astype(np.float32)).to(cuda)
+    x = t(rng.normal(size=(4000, spec.in_dim)) * 0.1)
+    lat, pts = t(rng.normal(size=(6, spec.code_length)) * 0.1), t(rng.normal(size=(5000, 3)) * 0.05)
+    args = _render_inputs(spec, cuda, B=3, F=2, R=37, M=22, seed=7)
+    kw = dict(pose_dim=7, scale_on=True, log_occ_on=True, occ_cutoff=0.15, occlusion_on=True,
+              occlusion_th=0.03, min_grad_th=1e-6)
+    calls = {
+        "B1": lambda: mlp_kernels.mlp_sdf_and_input_grad(pk32, x),
+        "B2": lambda: render_kernel.fused_render(pk16, *args, **kw),
+        "B3": lambda: (mlp_kernels.mlp_sdf(pk16, x),),
+        "B4": lambda: (mlp_kernels.mlp_sdf_shared_latent(pk16, lat, pts),),
+    }
+    alone = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    reps = 3
+    mlp_kernels.launches = mlp_kernels.launches_fwd = mlp_kernels.launches_shared_latent = 0
+    render_kernel.launches = render_kernel.launches_band = render_kernel.launches_sum = 0
+    start = threading.Barrier(len(calls))
+    out, errors = {}, []
+
+    def run(name):
+        try:
+            stream = torch.cuda.Stream(device=cuda)
+            with torch.cuda.stream(stream):
+                start.wait(timeout=60)
+                res = [calls[name]() for _ in range(reps)]
+                stream.synchronize()
+            out[name] = res
+        except BaseException as e:   # reported below, in the test's thread
+            errors.append((name, e))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(k,)) for k in calls]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not errors, errors
+    for name, want in alone.items():
+        for got in out[name]:
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+    assert (mlp_kernels.launches, render_kernel.launches, render_kernel.launches_band,
+            render_kernel.launches_sum, mlp_kernels.launches_fwd,
+            mlp_kernels.launches_shared_latent) == (reps,) * 6

@@ -69,7 +69,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import hortimapping_tpu_torch.metrics.precision_recall\n"
         "import hortimapping_tpu_torch.pipeline.greenhouse, hortimapping_tpu_torch.serve\n"
         "import hortimapping_tpu_torch.train.deepsdf, hortimapping_tpu_torch.tools.make_assets\n"
-        "import hortimapping_tpu_torch.data.kitti\n"
+        "import hortimapping_tpu_torch.data.kitti, hortimapping_tpu_torch.parallel\n"
+        "import hortimapping_tpu_torch.tools.multihost_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'hortimapping_tpu', 'cv2', 'PIL', 'click', 'wandb', 'optax', 'orbax')]\n"
         "print(bad)\n"
@@ -162,6 +163,23 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
             fn(params, spec, JointOptConfig(), [], np.zeros(8), np.eye(4), 0.08)
     with pytest.raises(RuntimeError, match="CUDA"):
         CompletionServer(params, spec, JointOptConfig(), 0.08)
+    from hortimapping_tpu_torch.models.workspace import load_distributed_checkpoint
+    from hortimapping_tpu_torch.parallel import fruit_mesh, shard_joint_opt
+    from hortimapping_tpu_torch.tools import multihost_smoke
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fruit_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shard_joint_opt(params, spec, JointOptConfig(), [], np.zeros(8), np.eye(4), 0.08,
+                        fruit_mesh(devices=["cpu"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CompletionServer(params, spec, JointOptConfig(), 0.08, use_mesh=True, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wild.run_wild_completion({}, mesh=fruit_mesh(devices=["cpu"] * 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_distributed_checkpoint(str(tmp_path / "dcp"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost_smoke.worker(0, 0, "cuda")
     for multi in (True, False):
         with pytest.raises(RuntimeError, match="CUDA"):
             greenhouse.run_greenhouse_eval({}, multi)

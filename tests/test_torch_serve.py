@@ -20,9 +20,10 @@ route: on these cases 2 of the ~60 served lanes (`fruit_001` of seed 55,
 and 1.4e-2 from JAX's served run).
 Where a case holds the server to a direct solve in the same package at the
 same batch width, the bound is JAX's own 1e-5. Served meshes lie within
-half a voxel of JAX's (mean symmetric nearest-neighbour distance). JAX's
-fruit-parallel serving (`use_mesh=True`) has no counterpart in the port,
-which raises `NotImplementedError` for it.
+half a voxel of JAX's (mean symmetric nearest-neighbour distance). The
+fruit-parallel server (`use_mesh=True`, 8 CPU shards) is held to JAX's
+sharded server on its 8 virtual devices at the same bounds, and to the
+port's direct `shard_joint_opt` of the batch within 1e-5.
 """
 
 import dataclasses
@@ -107,11 +108,11 @@ def _server(decoders, cfg=CFG, **kw):
     return CompletionServer(decoders[2], decoders[3], cfg, cube_radius=RADIUS, device="cpu", **kw)
 
 
-def _jax_served(decoders, jreqs, cfg=JCFG, table=None, sequential=False, **kw):
-    """JAX's single-device server on the requests (all submitted, then
-    waited for; or each waited for before the next is submitted): results
-    by fruit id."""
-    with JServer(decoders[0], decoders[1], cfg, cube_radius=RADIUS, use_mesh=False,
+def _jax_served(decoders, jreqs, cfg=JCFG, table=None, sequential=False, use_mesh=False, **kw):
+    """JAX's server (single device, or sharded over the session's 8 virtual
+    devices) on the requests (all submitted, then waited for; or each waited
+    for before the next is submitted): results by fruit id."""
+    with JServer(decoders[0], decoders[1], cfg, cube_radius=RADIUS, use_mesh=use_mesh,
                  latent_table=table, **kw) as srv:
         if sequential:
             results = [srv.submit(r).result(timeout=600) for r in jreqs]
@@ -353,14 +354,62 @@ def test_serve_restart_after_stop_raises(decoders):
         srv.submit(_requests(decoders, 1)[1][0])
 
 
-def test_serve_fruit_parallel_mesh_not_ported(decoders):
-    """In place of `test_serve_sharded_matches_single_device`: the port has
-    no fruit-parallel mesh, and asking for one raises, naming the roadmap
-    row; None and False serve on the one device."""
-    with pytest.raises(NotImplementedError, match="fruit-parallel"):
-        _server(decoders, use_mesh=True)
+def _cpu_mesh():
+    from hortimapping_tpu_torch.parallel import fruit_mesh
+
+    return fruit_mesh(devices=["cpu"] * 8)
+
+
+def test_serve_sharded_matches_direct_and_jax(decoders):
+    """The counterpart of `test_serve_sharded_matches_single_device`: with
+    `use_mesh=True` over 8 CPU shards max_batch 5 rounds up to 8, the server
+    reports 8 devices, and each served lane equals the port's direct
+    `shard_joint_opt` of the batch within 1e-5 and JAX's sharded serving on
+    its 8 virtual devices at the module's bounds; None and False serve on
+    the one device."""
+    from hortimapping_tpu_torch.parallel import shard_joint_opt
+
+    jreqs, reqs = _requests(decoders, 5, seed=33)
+    srv = _server(decoders, max_batch=5, use_mesh=True, mesh=_cpu_mesh())
+    assert srv.max_batch == 8 and srv._batch_width(5) == 8 and srv._batch_width(1) == 8
+    with srv:
+        results = [f.result(timeout=600) for f in [srv.submit(r) for r in reqs]]
+    assert srv.stats()["devices"] == 8 and all(r.batch_size == 5 for r in results)
+    obs, lat0, T0 = _assemble_batch_np(reqs, 8)
+    want = shard_joint_opt(decoders[2], decoders[3], CFG,
+                           FruitObservations(*(torch.as_tensor(a) for a in obs)),
+                           torch.as_tensor(lat0), torch.as_tensor(T0), RADIUS, _cpu_mesh(),
+                           device="cpu")
+    for i, r in enumerate(results):
+        assert not r.failed and r.iter_count == int(want.iter_count[i])
+        np.testing.assert_allclose(r.latent, want.latent[i].numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(r.T_ow, want.T_ow[i].numpy(), atol=1e-5, rtol=0)
+    _held(results, _jax_served(decoders, jreqs, max_batch=5, use_mesh=True), decoders, jreqs)
     for use_mesh in (None, False):
         assert _server(decoders, use_mesh=use_mesh).stats()["devices"] == 1
+
+
+def test_serve_meshing_sharded(decoders):
+    """`tests/test_serve.py::test_serve_meshing`'s sharded half: meshing
+    through the one-copy buffer behind the sharded solve; every result
+    carries its mesh, within half a voxel of JAX's sharded server's."""
+    from hortimapping_tpu.ops.mesher import MeshExtractor as JMesher
+
+    jreqs, reqs = _requests(decoders, 2, seed=7)
+    mesher = MeshExtractor(decoders[2], decoders[3], voxels_dim=VOXELS, cube_radius=RADIUS,
+                           device="cpu")
+    with _server(decoders, max_batch=2, mesher=mesher, use_mesh=True, mesh=_cpu_mesh()) as srv:
+        results = [srv.submit(r).result(timeout=300) for r in reqs]
+    jax_res = _jax_served(decoders, jreqs, max_batch=2, sequential=True, use_mesh=True,
+                          mesher=JMesher(decoders[0], decoders[1], voxels_dim=VOXELS,
+                                         cube_radius=RADIUS))
+    _held(results, jax_res, decoders, jreqs)
+    voxel = 2 * RADIUS / (VOXELS - 1)
+    for r in results:
+        assert r.mesh is not None and r.mesh.vertices.shape[0] > 0
+        a, b = r.mesh.vertices, np.asarray(jax_res[r.fruit_id].mesh.vertices)
+        gap = 0.5 * (cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean())
+        assert gap <= 0.5 * voxel, gap
 
 
 def test_serve_admission_control(decoders):

@@ -194,9 +194,84 @@ def test_timing_steady_epochs_counts_actual_first_chunk(tmp_path, data):
     assert res_c.timing["steady_epochs"] == 6
 
 
-def test_mesh_is_not_ported(tmp_path, data):
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tdeep.train_deepsdf(_experiment(tmp_path / "exp", data), mesh=object(), device="cpu")
+def _jax_mesh_draws(seed, n_scenes, scenes, half, pos_n, neg_n, n_epochs, steps, n_shards):
+    """The draws of JAX's trainer on a mesh of `n_shards` devices: each
+    device folds its index into the step key (`fold_in(step_key, i)`), then
+    draws as `_jax_draws` does; in order epoch, step, device."""
+    k = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(n_epochs):
+        k, ke = jax.random.split(k)
+        for step_key in jax.random.split(ke, steps):
+            for i in range(n_shards):
+                ks, kd = jax.random.split(jax.random.fold_in(step_key, i))
+                sid = jax.random.randint(ks, (scenes,), 0, n_scenes)
+                kp, kn = jax.random.split(kd)
+
+                def draw(kk, counts):
+                    idx = jax.random.randint(kk, (scenes, half), 0, 1 << 30)
+                    return idx % jnp.maximum(jnp.asarray(counts)[sid], 1)[:, None]
+
+                out.append(tuple(torch.tensor(np.asarray(a), dtype=torch.int64)
+                                 for a in (sid, draw(kp, pos_n), draw(kn, neg_n))))
+    return out
+
+
+def test_mesh_training_matches_jax_data_parallel(tmp_path, data, monkeypatch):
+    """The counterpart of `tests/test_train.py::test_training_data_parallel_mesh`:
+    JAX's trainer over `fruit_mesh(8)` (ScenesPerBatch 6 rounded up to 8,
+    one scene a device, gradients and loss `pmean`-ed) against the port over
+    8 CPU shards with JAX's per-device draws replayed, at the file's
+    tolerances; the port's rounding message is JAX's."""
+    from hortimapping_tpu.parallel import fruit_mesh as jfruit_mesh
+    from hortimapping_tpu_torch.parallel import fruit_mesh
+
+    n_epochs, over = 4, dict(SamplesPerScene=256)
+    want = jdeep.train_deepsdf(_experiment(tmp_path / "jax", data, **over), num_epochs=n_epochs,
+                               mesh=jfruit_mesh(8), save=False, **QUIET)
+    spec = jdec.DecoderSpec(code_length=4, dims=(48, 48, 48), latent_in=(1,))
+    _, pos_n, _, neg_n, names = jdeep.load_sdf_samples(data)
+    draws = iter(_jax_mesh_draws(0, len(names), 1, 128, pos_n, neg_n, n_epochs, 1, 8))
+    init = jax.tree_util.tree_map(np.array, jdec.init_decoder_params(spec, jax.random.PRNGKey(0)))
+    monkeypatch.setattr(tdeep, "_draw_step", lambda *a: next(draws))
+    monkeypatch.setattr(tdeep, "init_decoder_params",
+                        lambda spec_, g, dev: tws.params_from_jax(init, dev))
+    said = []
+    got = tdeep.train_deepsdf(_experiment(tmp_path / "port", data, **over), num_epochs=n_epochs,
+                              mesh=fruit_mesh(devices=["cpu"] * 8), save=False, device="cpu",
+                              log=said.append)
+    assert next(draws, None) is None                # every shard's draw was taken, in order
+    assert ("[train] ScenesPerBatch=6 is not divisible by 8 devices; rounding the global "
+            "scene batch up to 8") in said
+    assert np.abs(got.losses - want.losses).max() <= LOSS_TOL, (got.losses, want.losses)
+    assert np.abs(got.latent_codes - want.latent_codes).max() <= CODE_TOL
+    _assert_params_close(got.params, want.params, PARAM_TOL, "params")
+
+
+def test_mesh_training_resume_is_bit_identical(tmp_path, data):
+    """Under a mesh of 3 shards: each shard's generator is in the snapshot,
+    so a run resumed from it ends bit for bit where the straight run ends;
+    a snapshot of another number of shards is refused, and so is a mesh
+    that spans processes."""
+    from hortimapping_tpu_torch.parallel import fruit_mesh
+    from hortimapping_tpu_torch.parallel.sharding import FruitMesh
+
+    mesh = fruit_mesh(devices=["cpu"] * 3)
+    kw = dict(num_epochs=6, save=False, device="cpu", mesh=mesh, **QUIET)
+    exp_a = _experiment(tmp_path / "straight", data)
+    exp_b = _experiment(tmp_path / "resumed", data)
+    res_a = tdeep.train_deepsdf(exp_a, **kw)
+    tdeep.train_deepsdf(exp_b, snapshot_every=3, **kw)
+    res_b = tdeep.train_deepsdf(exp_b, resume=True, **kw)
+    assert np.array_equal(res_a.losses, res_b.losses)
+    assert np.array_equal(res_a.latent_codes, res_b.latent_codes)
+    for name in res_a.params:
+        for k in ("w", "b"):
+            assert torch.equal(res_a.params[name][k], res_b.params[name][k])
+    with pytest.raises(ValueError, match="on 3 shards, not 2"):
+        tdeep.train_deepsdf(exp_b, resume=True, **dict(kw, mesh=fruit_mesh(devices=["cpu"] * 2)))
+    with pytest.raises(NotImplementedError, match="Multi-process training"):
+        tdeep.train_deepsdf(exp_a, **dict(kw, mesh=FruitMesh(mesh.devices, 0, 2)))
 
 
 def test_python_m_entry_writes_a_checkpoint(tmp_path, data):

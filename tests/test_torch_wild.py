@@ -2,9 +2,10 @@
 the JAX wild test's tiny scene (`tests/test_pipeline_wild.py`:
 synthetic_small_8, 2 fruits, 5 frames, 144x108, seed 3).
 
-The JAX pipeline is pinned to its single-device branch (`warmstart_solve`,
-the branch the port always takes): the test session gives JAX 8 virtual CPU
-devices, which would send it down its sharded branch.
+The single-device case pins the JAX pipeline to its single-device branch
+(`warmstart_solve`): the test session gives JAX 8 virtual CPU devices, which
+would send it down its sharded branch. The sharded case runs that branch on
+both packages: JAX over its 8 virtual devices, the port over 8 CPU shards.
 
 Tolerances. Names, validity, reasons, iteration counts, manifests and the
 cleaned clouds must be equal, and the completed meshes within half a voxel
@@ -129,15 +130,33 @@ def _run_jax_single_device(cfg, monkeypatch):
     return results, seen
 
 
-@pytest.mark.parametrize("schedule", ["reference", "tpu_block"])
-def test_pipeline_matches_jax(schedule, scenes, monkeypatch):
-    root, jdir, _ = scenes
-    dj = _copy_scene(jdir, str(root / f"run_jax_{schedule}"))
-    dt = _copy_scene(jdir, str(root / f"run_torch_{schedule}"))
-    tpu = schedule == "tpu_block"
-    want, seen = _run_jax_single_device(_cfg_for(dj, tpu), monkeypatch)
-    got = twild.run_wild_completion(_cfg_for(dt, tpu), log=lambda *a: None, device="cpu")
+def _run_jax_sharded(cfg, monkeypatch):
+    """JAX's pipeline on its multi-device branch (the session's 8 virtual
+    devices: the single-start retrieval warm start, then `shard_joint_opt`);
+    also returns the inputs of its sharded solve and its final state under
+    a start latent one ulp up."""
+    import hortimapping_tpu.parallel as jparallel
 
+    seen = {}
+    solve = jparallel.shard_joint_opt
+
+    def capture(params, spec, opt_cfg, obs, lat0, T0, radius, mesh, *a, **kw):
+        assert mesh.devices.size == 8
+        res = solve(params, spec, opt_cfg, obs, lat0, T0, radius, mesh, *a, **kw)
+        lat_up = np.nextafter(np.asarray(lat0), np.float32(np.inf)).astype(np.float32)
+        seen["res_up"] = solve(params, spec, opt_cfg, obs, jax.numpy.asarray(lat_up), T0, radius,
+                               mesh, *a, **kw)
+        seen["res"] = res
+        return res
+
+    with monkeypatch.context() as m:
+        m.setattr(jparallel, "shard_joint_opt", capture)
+        results = jwild.run_wild_completion(cfg, log=lambda *a: None)
+    return results, seen
+
+
+def _hold_run(got, want, seen, dj, dt, flat=False):
+    """The port's run held to JAX's under the module docstring's bounds."""
     want = sorted(want, key=lambda r: r.name)
     got = sorted(got, key=lambda r: r.name)
     assert [(r.name, r.submap_id, r.valid, r.reason, r.iter_count) for r in got] == [
@@ -150,7 +169,7 @@ def test_pipeline_matches_jax(schedule, scenes, monkeypatch):
     spread = np.maximum(np.abs(np.asarray(res.latent) - np.asarray(up.latent)).max(1),
                         np.abs(np.asarray(res.T_ow) - np.asarray(up.T_ow)).max((1, 2)))
     tol = np.maximum(2e-4, 4 * spread)
-    if tpu:   # retrieval replaces the start latent: no movement, the plain 2e-4
+    if flat:
         assert np.all(tol == 2e-4)
     lane = {r.name: i for i, r in enumerate(r for r in want if r.iter_count > 0)}
     for a, b in zip(got, want):
@@ -174,6 +193,35 @@ def test_pipeline_matches_jax(schedule, scenes, monkeypatch):
         sym = 0.5 * (cKDTree(pb.points).query(pa.points)[0].mean()
                      + cKDTree(pa.points).query(pb.points)[0].mean())
         assert sym <= 0.5 * voxel, (r.name, sym, voxel)
+
+
+@pytest.mark.parametrize("schedule", ["reference", "tpu_block"])
+def test_pipeline_matches_jax(schedule, scenes, monkeypatch):
+    root, jdir, _ = scenes
+    dj = _copy_scene(jdir, str(root / f"run_jax_{schedule}"))
+    dt = _copy_scene(jdir, str(root / f"run_torch_{schedule}"))
+    tpu = schedule == "tpu_block"
+    want, seen = _run_jax_single_device(_cfg_for(dj, tpu), monkeypatch)
+    got = twild.run_wild_completion(_cfg_for(dt, tpu), log=lambda *a: None, device="cpu")
+    # retrieval replaces the start latent: no movement, the plain 2e-4
+    _hold_run(got, want, seen, dj, dt, flat=tpu)
+
+
+@pytest.mark.parametrize("schedule", ["reference", "tpu_block"])
+def test_sharded_branch_matches_jax(schedule, scenes, monkeypatch):
+    """The multi-device branch (no rescue, no multi-start: JAX's own
+    behaviour there) over 8 CPU shards against JAX's over its 8 virtual
+    devices, the 2 fruits padded to 8 lanes."""
+    from hortimapping_tpu_torch.parallel import fruit_mesh
+
+    root, jdir, _ = scenes
+    dj = _copy_scene(jdir, str(root / f"run_jax_sharded_{schedule}"))
+    dt = _copy_scene(jdir, str(root / f"run_torch_sharded_{schedule}"))
+    tpu = schedule == "tpu_block"
+    want, seen = _run_jax_sharded(_cfg_for(dj, tpu), monkeypatch)
+    got = twild.run_wild_completion(_cfg_for(dt, tpu), log=lambda *a: None, device="cpu",
+                                    mesh=fruit_mesh(devices=["cpu"] * 8))
+    _hold_run(got, want, seen, dj, dt)
 
 
 def test_resume_skips_every_valid_fruit(scenes):
