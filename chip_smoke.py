@@ -140,9 +140,13 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      a served burst of 64 with `use_mesh` on that mesh (max_batch 32), each
      lane within 1e-5 of `shard_joint_opt` of its batch, fruits/s;
      data-parallel training at 64 x 8192 rows a step, 8 steps on 2 shards,
-     held to the single-device trainer fed the same draws, ms a step; 4
-     threads of small ops free and taking host turns against one; the
-     two-process smoke (`tools/multihost_smoke.py --device cuda`);
+     held to the single-device trainer fed the same draws, ms a step; the
+     same training over 2 processes on cuda:0 (gloo on 127.0.0.1, one shard
+     each, `tools/multihost_smoke.py --train`) held to the 2-shard run
+     (losses 1e-6, weights 1e-4, codes 4e-5), ms a step, the exchange's ms
+     a step, peak memory a process; 4 threads of small ops free and taking
+     host turns against one; the two-process smoke
+     (`tools/multihost_smoke.py --device cuda`);
  18. the asset build and the torch checkpoint: `make_category` of
      synthetic_pepper_32 (12000 steps x 8192 rows, cut and the cut printed if
      the script would pass 1000 s) timed, its SDF error on 65536 held-out
@@ -2379,14 +2383,16 @@ def train_experiment(root: str, data: str, arch_dir: str, **fields) -> str:
 
 @contextlib.contextmanager
 def replayed_training(init, draws=None, record=None):
-    """The trainer started from `init` (a function of the device) and, with
-    `record`, its draws appended there, or with `draws`, those draws moved
-    to the run's device and replayed in turn."""
+    """The trainer started from `init` (a function of the device; None: the
+    trainer's own init) and, with `record`, its draws appended there, or
+    with `draws`, those draws moved to the run's device and replayed in
+    turn."""
     from hortimapping_tpu_torch.train import deepsdf
 
     saved = deepsdf.init_decoder_params, deepsdf._draw_step
     orig_draw = deepsdf._draw_step
-    deepsdf.init_decoder_params = lambda spec, g, dev: init(dev)
+    if init is not None:
+        deepsdf.init_decoder_params = lambda spec, g, dev: init(dev)
 
     def draw(*a):
         if draws is not None:
@@ -2753,13 +2759,14 @@ def mesh_train(smi, dev, tmp: str, arch_dir: str, n_scenes=64, n_each=16384, ste
     """Data-parallel training at full width: 64 x 8192 rows a step (8 x 512
     decoder) for `steps` steps of one epoch each, over `shards` shards, and
     the single-device trainer fed the same draws (each step's shards' draws
-    concatenated) from the same init: losses within 1e-6, weights within
-    1e-4, codes within 4e-5 (tests/test_torch_train.py's bounds). -> the
-    line's numbers."""
+    concatenated) from the same init (the trainer's own, seed 0): losses
+    within 1e-6, weights within 1e-4, codes within 4e-5
+    (tests/test_torch_train.py's bounds). -> (ms a step on the mesh, on one
+    device, the mesh run's result, the SdfSamples directory)."""
     import numpy as np
     import torch
 
-    from hortimapping_tpu_torch.models.decoder import DecoderSpec, init_decoder_params
+    from hortimapping_tpu_torch.models.decoder import DecoderSpec
     from hortimapping_tpu_torch.models.workspace import load_specs
     from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory
     from hortimapping_tpu_torch.train import deepsdf
@@ -2769,10 +2776,6 @@ def mesh_train(smi, dev, tmp: str, arch_dir: str, n_scenes=64, n_each=16384, ste
         cat = SyntheticCategory(spec=spec, base_radius=float(z["synthetic.base_radius"]))
     data = os.path.join(tmp, "data")
     write_sdf_samples(data, cat, n_scenes, n_each)
-    init_cpu = init_decoder_params(spec, torch.Generator().manual_seed(3), "cpu")
-
-    def init(device):
-        return {k: {kk: v.clone().to(device) for kk, v in p.items()} for k, p in init_cpu.items()}
 
     mesh = shard_mesh(shards)
     runs, draws = {}, []
@@ -2784,13 +2787,13 @@ def mesh_train(smi, dev, tmp: str, arch_dir: str, n_scenes=64, n_each=16384, ste
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if label == "mesh":
-            with replayed_training(init, record=draws):
+            with replayed_training(None, record=draws):
                 res = deepsdf.train_deepsdf(exp, mesh=mesh, **kw)
             n = len(mesh.devices)
             replay = [tuple(torch.cat([d[k] for d in draws[i:i + n]]) for k in range(3))
                       for i in range(0, len(draws), n)]
         else:
-            with replayed_training(init, draws=replay):
+            with replayed_training(None, draws=replay):
                 res = deepsdf.train_deepsdf(exp, **kw)
             assert not replay
         runs[label] = (res, float(np.median(np.diff([t0] + stamps)[1:])) * 1e3)
@@ -2808,7 +2811,52 @@ def mesh_train(smi, dev, tmp: str, arch_dir: str, n_scenes=64, n_each=16384, ste
           f"{d_w:.3g} (gate 1e-4), |d code| {d_z:.3g} (gate 4e-5) | {smi}", flush=True)
     assert np.isfinite(res_m.losses).all()
     assert d_loss <= 1e-6 and d_w <= 1e-4 and d_z <= 4e-5, (d_loss, d_w, d_z)
-    return ms_m, ms_s
+    return ms_m, ms_s, res_m, data
+
+
+def process_train(smi, tmp: str, data: str, arch_dir: str, want, steps=8, device="cuda"):
+    """Data-parallel training over a mesh that spans processes: two
+    processes on cuda:0 joined over gloo on 127.0.0.1, one shard each
+    (`tools/multihost_smoke.py --train`), the same experiment, seed and
+    draws as `mesh_train`'s 2-shard run `want`: losses within 1e-6, weights
+    within 1e-4, codes within 4e-5 of it; both processes bit-equal. -> ms a
+    step (median of steps 2-`steps`, the slower process)."""
+    import numpy as np
+    import torch
+
+    from hortimapping_tpu_torch.tools import multihost_smoke
+
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()   # the two workers share the card with this process's cache
+    exp = train_experiment(os.path.join(tmp, "processes"), data, arch_dir, NumEpochs=steps)
+    out = os.path.join(tmp, "processes_out")
+    t0 = time.perf_counter()
+    results = multihost_smoke.run_workers(
+        ["--device", device, "--train", exp, "--local_shards", "1", "--epochs", str(steps),
+         "--out", out], timeout=240)
+    wall = time.perf_counter() - t0
+    for rc, said, report in results:
+        assert rc == 0 and report is not None, said[-4000:]
+    reports = [r for _, _, r in results]
+    assert [r["shards"] for r in reports] == [2, 2] and reports[0]["result"] == reports[1]["result"]
+    with np.load(os.path.join(out, "rank0.npz")) as z:
+        d_loss = float(np.abs(z["losses"] - want.losses).max())
+        d_z = float(np.abs(z["codes"] - want.latent_codes).max())
+        d_w = max(float(np.abs(z[f"params.{k}.{kk}"] - want.params[k][kk].cpu().numpy()).max())
+                  for k in want.params for kk in ("w", "b"))
+    ms = max(r["ms_step"] for r in reports)
+    peak = [r["peak_mb"] and round(r["peak_mb"], 1) for r in reports]
+    print(f"training over 2 processes (gloo on 127.0.0.1, one shard of "
+          f"{reports[0]['devices'][0]} each, 64 x 8192 rows a step, {steps} steps): "
+          f"{ms:.1f} ms a step (median of steps 2-{steps}; by process "
+          f"{[round(r['ms_step'], 1) for r in reports]}) | the exchange (ok flags + all_gather "
+          f"of the gradient rows) {[round(r['gather_ms_step'], 1) for r in reports]} ms a step | "
+          f"peak memory {peak} MB a process | spawn to end {wall:.1f} s | both processes "
+          f"bit-equal | vs the in-process 2-shard run: |d loss| {d_loss:.3g} (gate 1e-6), "
+          f"|d weight| {d_w:.3g} (gate 1e-4), |d code| {d_z:.3g} (gate 4e-5) | {smi}", flush=True)
+    assert np.isfinite(reports[0]["losses"]).all()
+    assert d_loss <= 1e-6 and d_w <= 1e-4 and d_z <= 4e-5, (d_loss, d_w, d_z)
+    return ms
 
 
 def mesh_path(params, spec, table, pk16, pk32, smi, dev, obs, T0, gts, profile=None):
@@ -2822,7 +2870,8 @@ def mesh_path(params, spec, table, pk16, pk32, smi, dev, obs, T0, gts, profile=N
     versions at the shard width on the run's own observations; a sharded
     served burst of 64 (max_batch 32), each lane within 1e-5 of
     `shard_joint_opt` of its batch; data-parallel training on 2 shards held
-    to the single-device trainer; the two-process smoke on the card. With
+    to the single-device trainer, and over 2 processes held to the 2-shard
+    run; the two-process smoke on the card. With
     `profile`, one 4-shard batch traced. -> kernel records."""
     import dataclasses
     import tempfile
@@ -2950,10 +2999,13 @@ def mesh_path(params, spec, table, pk16, pk32, smi, dev, obs, T0, gts, profile=N
           f"each lane vs shard_joint_opt of its batch: max gap {gap:.3g} (gate 1e-5) | {smi}",
           flush=True)
 
-    # data-parallel training, the host-turn probe, then the two-process smoke
+    # data-parallel training in one process and over two, the host-turn
+    # probe, then the two-process smoke
     host_turn_probe(smi, dev)
+    arch_dir = os.path.join(ROOT, "assets", "synthetic_pepper_32")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        mesh_train(smi, dev, tmp, os.path.join(ROOT, "assets", "synthetic_pepper_32"))
+        res_m, data = mesh_train(smi, dev, tmp, arch_dir)[2:]
+        process_train(smi, tmp, data, arch_dir, res_m)
     smoke = subprocess.run(
         [sys.executable, "-m", "hortimapping_tpu_torch.tools.multihost_smoke", "--device", "cuda",
          "--timeout", "240"], cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -31,6 +31,12 @@ gathered.
     process's devices. Every process passes the same full batch, solves its
     own shards and receives every other process's lanes (`all_gather_object`
     of host tensors): the only traffic between processes.
+  * Across processes, process r's local shard i is global shard
+    r * len(mesh.devices) + i. `gather_rows` gathers one host row a shard
+    in that order (the data-parallel trainer's gradient exchange), and
+    `raise_on_any_rank` is a barrier that carries failures, so an error in
+    one process raises in every process instead of leaving the others
+    waiting in a collective.
 
 Padding: the batch is padded to a multiple of the mesh size with invalid
 lanes (`frame_valid=False` everywhere) that fail at their first iteration
@@ -291,15 +297,47 @@ def _solve_local(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known
                        for k in range(len(OptResult._fields))))
 
 
+def check_shard_counts(counts: Sequence[int]) -> None:
+    """Refuse a multi-process mesh whose processes (`counts`, in rank order)
+    hold different numbers of shards."""
+    if len(set(counts)) != 1:
+        raise ValueError(f"processes hold {list(counts)} shards: a fruit mesh needs the same "
+                         "number in each")
+
+
+def raise_on_any_rank(mesh: FruitMesh, error: Optional[BaseException], what: str) -> None:
+    """A barrier over the processes of `mesh` that carries failures: each
+    process passes its own exception (None when it is fine), and if any
+    passed one, every process raises a RuntimeError saying `what` failed,
+    on which ranks and why (chained to the local exception where there is
+    one)."""
+    import torch.distributed as dist
+
+    said = [None] * mesh.world_size
+    dist.all_gather_object(said, None if error is None else f"{type(error).__name__}: {error}")
+    failed = [f"rank {r}: {m}" for r, m in enumerate(said) if m is not None]
+    if failed:
+        raise RuntimeError(f"{what} failed on " + "; ".join(failed)) from error
+
+
+def gather_rows(local: torch.Tensor, mesh: FruitMesh) -> torch.Tensor:
+    """[k, n] host rows of this process's k shards -> [world_size * k, n]
+    of every process's, in global shard order (rank by rank), on every
+    process. Each row arrives as it was sent: nothing is summed in transit."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(local) for _ in range(mesh.world_size)]
+    dist.all_gather(parts, local.contiguous())
+    return torch.cat(parts)
+
+
 def _gather_processes(res: OptResult, mesh: FruitMesh, device: torch.device) -> OptResult:
     """Every process's lanes, in rank order, on every process."""
     import torch.distributed as dist
 
     parts = [None] * mesh.world_size
     dist.all_gather_object(parts, (len(mesh.devices), OptResult(*(t.cpu() for t in res))))
-    if len({p[0] for p in parts}) != 1:
-        raise ValueError(f"processes hold {[p[0] for p in parts]} shards: a fruit mesh needs "
-                         "the same number in each")
+    check_shard_counts([p[0] for p in parts])
     return OptResult(*(torch.cat([p[1][k] for p in parts]).to(device)
                        for k in range(len(OptResult._fields))))
 

@@ -35,12 +35,29 @@ thread on its own replica; the losses and gradients are averaged in shard
 order on the first shard's device, which holds the one master copy of the
 parameters, the codes and both Adam groups (shard 0 works on it), and the
 one update is copied to the other shards' replicas.
+
+Over a mesh that spans processes (`parallel.init_multi_host`; every process
+calls with the same arguments): process r's local shard i is global shard
+g = r * k + i (k shards a process) and draws as global shard g of a
+one-process mesh would. Each process keeps its own master copy on its first
+device; the start is checked equal across processes (a digest of the
+arguments, the data's names, the parameters, codes and Adam state). Each
+step, each process packs each local shard's loss and gradients into one
+flat f32 row, the rows of every process are gathered over gloo
+(`parallel.sharding.gather_rows`: an all_gather, never an all-reduce,
+whose order would depend on the split into processes) and every process
+averages them in global shard order and takes the same Adam step. So the
+run does not depend on how the shards are split into processes, and a
+snapshot (every global shard's generator, written by rank 0 alone) resumes
+on any layout of the same global shard count. A failure in any shard, or in
+rank 0's writes, raises in every process (`raise_on_any_rank`).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -58,7 +75,12 @@ from hortimapping_tpu_torch.models.decoder import (
     init_decoder_params,
 )
 from hortimapping_tpu_torch.models.workspace import NATIVE_SUBDIR, load_specs, save_native_checkpoint
-from hortimapping_tpu_torch.parallel.sharding import run_shards
+from hortimapping_tpu_torch.parallel.sharding import (
+    check_shard_counts,
+    gather_rows,
+    raise_on_any_rank,
+    run_shards,
+)
 
 TRAIN_STATE_FILE = "train_state.npz"
 # marks the port's snapshots: the JAX trainer's file of the same name holds
@@ -169,13 +191,27 @@ def _shard_generator(seed: int, shard: int, device: torch.device) -> torch.Gener
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def _generator_states(generators: Sequence[torch.Generator], mesh) -> List[np.ndarray]:
+    """Every global shard's generator state, in global shard order: this
+    process's, or on a mesh that spans processes every process's
+    (a collective: every process calls it)."""
+    mine = [g.get_state().numpy() for g in generators]
+    if mesh is None or mesh.world_size == 1:
+        return mine
+    import torch.distributed as dist
+
+    parts = [None] * mesh.world_size
+    dist.all_gather_object(parts, mine)
+    return [s for p in parts for s in p]
+
+
 def _save_train_state(experiment_directory: str, params: Params, codes: torch.Tensor,
-                      opt: torch.optim.Adam, generators: Sequence[torch.Generator], epoch: int,
+                      opt: torch.optim.Adam, generator_states: Sequence[np.ndarray], epoch: int,
                       losses: Sequence[float]) -> str:
     """Persist the whole training state (params, codes, both Adam groups'
-    moments and step counts, each shard's generator state), the epoch and
-    the loss history, atomically: a temp file renamed over the last
-    snapshot."""
+    moments and step counts, every global shard's generator state), the
+    epoch and the loss history, atomically: a temp file renamed over the
+    last snapshot."""
     arrays = {"format": np.asarray(STATE_FORMAT)}
     for name, p in params.items():
         for k in ("w", "b"):
@@ -184,10 +220,10 @@ def _save_train_state(experiment_directory: str, params: Params, codes: torch.Te
     for i, st in opt.state_dict()["state"].items():
         for k, v in st.items():
             arrays[f"adam.{i}.{k}"] = v.detach().cpu().numpy()
-    arrays["generator"] = generators[0].get_state().numpy()
-    for i, g in enumerate(generators[1:], 1):
-        arrays[f"generator.{i}"] = g.get_state().numpy()
-    arrays["shards"] = np.asarray(len(generators), np.int64)
+    arrays["generator"] = generator_states[0]
+    for i, st in enumerate(generator_states[1:], 1):
+        arrays[f"generator.{i}"] = st
+    arrays["shards"] = np.asarray(len(generator_states), np.int64)
     arrays["epoch"] = np.asarray(int(epoch), np.int64)
     arrays["losses"] = np.asarray(losses, np.float64)
     path = _train_state_path(experiment_directory)
@@ -199,11 +235,13 @@ def _save_train_state(experiment_directory: str, params: Params, codes: torch.Te
 
 
 def _load_train_state(experiment_directory: str, params: Params, codes: torch.Tensor,
-                      opt: torch.optim.Adam, generators: Sequence[torch.Generator]):
+                      opt: torch.optim.Adam, generators: Sequence[torch.Generator],
+                      first: int = 0, total: Optional[int] = None):
     """Restore a snapshot of `_save_train_state` into the given state in
-    place -> (epoch, losses). Refuses another package's snapshot, one whose
-    shapes do not match this experiment and one of another number of
-    shards."""
+    place -> (epoch, losses); `generators` are global shards first,
+    first + 1, ... of `total` (default: all of them). Refuses another
+    package's snapshot, one whose shapes do not match this experiment and
+    one of another global number of shards."""
     path = _train_state_path(experiment_directory)
     with np.load(path) as z:
         if "format" not in z.files or str(z["format"]) != STATE_FORMAT:
@@ -214,9 +252,10 @@ def _load_train_state(experiment_directory: str, params: Params, codes: torch.Te
         want = {f"params.{name}.{k}": p[k] for name, p in params.items() for k in ("w", "b")}
         want["codes"] = codes
         shards = int(z["shards"]) if "shards" in z.files else 1
-        if shards != len(generators):
+        total = len(generators) if total is None else total
+        if shards != total:
             raise ValueError(f"{path} was written by a run on {shards} shards, not "
-                             f"{len(generators)}: the draws would differ")
+                             f"{total}: the draws would differ")
         saved = {k for k in z.files if k.startswith("params.")} | {"codes"}
         if saved != set(want):
             raise ValueError(f"{path} holds other layers than the experiment's: {_STALE}")
@@ -235,12 +274,20 @@ def _load_train_state(experiment_directory: str, params: Params, codes: torch.Te
             if keys:
                 sd["state"][i] = {k.split(".", 2)[2]: torch.as_tensor(z[k]) for k in keys}
         opt.load_state_dict(sd)
-        generators[0].set_state(torch.as_tensor(z["generator"]))
-        for i, g in enumerate(generators[1:], 1):
-            g.set_state(torch.as_tensor(z[f"generator.{i}"]))
+        for i, g in enumerate(generators, first):
+            g.set_state(torch.as_tensor(z["generator" if i == 0 else f"generator.{i}"]))
         epoch = int(z["epoch"])
         losses = [float(x) for x in z["losses"]]
     return epoch, losses
+
+
+def _state_digest(facts, tensors: Sequence[torch.Tensor]) -> str:
+    """A digest of `facts` (repr) and the tensors' values, to check that the
+    processes of a run start from the same state."""
+    h = hashlib.sha256(repr(facts).encode())
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def train_deepsdf(
@@ -276,12 +323,15 @@ def train_deepsdf(
 
     `mesh` (`parallel/sharding.FruitMesh`): data-parallel over its shards
     (module docstring), the master state on its first device in place of
-    `device`; a mesh that spans processes is not supported.
+    `device`. On a mesh that spans processes every process calls with the
+    same arguments and returns the same result (`timing` aside, which also
+    gets `gather_s`, the seconds spent in the exchange between processes);
+    rank 0 alone writes the checkpoint and the training state, and every
+    process reads the state on resume, so the experiment directory is one
+    that every process sees.
     """
-    if mesh is not None and mesh.world_size > 1:
-        raise NotImplementedError(
-            "data-parallel training over a mesh that spans processes is not ported: "
-            "ROADMAP.md Queue A, 'Multi-process training'")
+    world = mesh.world_size if mesh is not None else 1
+    rank = mesh.rank if mesh is not None else 0
     dev = resolve_device(mesh.devices[0] if mesh is not None else device)
     specs = load_specs(experiment_directory)
     spec = DecoderSpec.from_specs_json(specs)
@@ -310,12 +360,14 @@ def train_deepsdf(
     steps_per_epoch = max(1, S // scenes_per_batch)
     half = samples_per_scene // 2
     shards = [resolve_device(d) for d in mesh.devices] if mesh is not None else [dev]
+    n_global = mesh.size if mesh is not None else 1
+    first = rank * len(shards)   # this process's first global shard
     # each shard's share of the global scene batch, rounded up: flooring
     # would shrink the effective ScenesPerBatch against specs.json
-    scenes_local = max(1, -(-scenes_per_batch // len(shards)))
-    if mesh is not None and scenes_local * len(shards) != scenes_per_batch:
-        log(f"[train] ScenesPerBatch={scenes_per_batch} is not divisible by {len(shards)} "
-            f"devices; rounding the global scene batch up to {scenes_local * len(shards)}")
+    scenes_local = max(1, -(-scenes_per_batch // n_global))
+    if mesh is not None and scenes_local * n_global != scenes_per_batch:
+        log(f"[train] ScenesPerBatch={scenes_per_batch} is not divisible by {n_global} "
+            f"devices; rounding the global scene batch up to {scenes_local * n_global}")
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_decoder_params(spec, gen, dev)
@@ -327,7 +379,9 @@ def train_deepsdf(
     # the code table is one dense parameter: rows not drawn in a step still
     # move with their moments, as optax moves them
     opt = torch.optim.Adam([{"params": net, "lr": net_lr0}, {"params": [codes], "lr": cod_lr0}])
-    gens = [gen] + [_shard_generator(seed, i, d) for i, d in enumerate(shards[1:], 1)]
+    # global shard 0 draws on the run's generator, global shard g > 0 on
+    # (seed, g)'s, whatever process holds it
+    gens = [gen if g == 0 else _shard_generator(seed, g, d) for g, d in enumerate(shards, first)]
     # the sample banks once a device; the parameters and codes: shard 0's
     # are the master, every other shard differentiates a replica of its own
     # (shards of one device share no autograd leaf across threads)
@@ -403,10 +457,33 @@ def train_deepsdf(
             loss = shard_loss(p, cz, shards[i], draws[i], reg_ramp)
             return (loss.detach(),) + tuple(torch.autograd.grad(loss, leaves(p, cz)))
 
-        outs = run_shards(shard, shards, dev)
+        if world == 1:
+            outs = run_shards(shard, shards, dev)
+            opt.zero_grad(set_to_none=True)
+            update([mean_in_order([o[j] for o in outs]) for j in range(1, len(outs[0]))])
+            return mean_in_order([o[0] for o in outs])
+
+        def packed(i: int) -> torch.Tensor:
+            """Shard i's loss and gradients as one flat f32 row."""
+            try:
+                return torch.cat([t.reshape(-1) for t in shard(i)])
+            except Exception as exc:
+                raise RuntimeError(f"shard {first + i}: {type(exc).__name__}: {exc}") from exc
+
+        error, local = None, None
+        try:
+            local = torch.stack([r.cpu() for r in run_shards(packed, shards, dev)])
+        except Exception as exc:   # raised below in every process, not only here
+            error = exc
+        t0 = time.perf_counter()
+        raise_on_any_rank(mesh, error, "training step")
+        rows = gather_rows(local, mesh)
+        gather_s[0] += time.perf_counter() - t0
+        mean = mean_in_order(list(rows.to(dev)))
+        sizes = [t.numel() for t in leaves(params, codes)]
         opt.zero_grad(set_to_none=True)
-        update([mean_in_order([o[j] for o in outs]) for j in range(1, len(outs[0]))])
-        return mean_in_order([o[0] for o in outs])
+        update([g.view_as(t) for g, t in zip(mean[1:].split(sizes), leaves(params, codes))])
+        return mean[0]
 
     def run_chunk(e0: int, n: int) -> List[float]:
         means = []
@@ -420,10 +497,42 @@ def train_deepsdf(
     losses: list = []
     e = 0
     if resume and os.path.isfile(_train_state_path(experiment_directory)):
-        e, losses = _load_train_state(experiment_directory, params, codes, opt, gens)
+        e, losses = _load_train_state(experiment_directory, params, codes, opt, gens, first,
+                                      n_global)
         sync_replicas()
         log(f"resumed at epoch {e}/{num_epochs} from "
             f"{_train_state_path(experiment_directory)}")
+    gather_s = [0.0]
+    if world > 1:
+        import torch.distributed as dist
+
+        # every process starts from the same state, or none trains
+        facts = (names, specs, num_epochs, seed, save, checkpoint, epochs_per_call,
+                 snapshot_every, e, losses)
+        opt_state = [v for st in opt.state_dict()["state"].values() for v in st.values()]
+        said = [None] * world
+        dist.all_gather_object(said, (len(shards), _state_digest(
+            facts, leaves(params, codes) + opt_state)))
+        check_shard_counts([k for k, _ in said])
+        if len({d for _, d in said}) != 1:
+            raise ValueError("the processes of the mesh start from different states (arguments, "
+                             "data, parameters or snapshot): every process must call "
+                             "train_deepsdf with the same arguments on the same files")
+
+    def rank0_writes(write) -> None:
+        """write() on rank 0 alone; every other process waits for it and
+        raises if it failed."""
+        if world == 1:
+            write()
+            return
+        error = None
+        if rank == 0:
+            try:
+                write()
+            except Exception as exc:   # raised below in every process
+                error = exc
+        raise_on_any_rank(mesh, error, "rank 0's write")
+
     epochs_per_call = max(1, min(int(epochs_per_call), num_epochs))
     t0 = time.time()
     t_first = None  # end of the first chunk: first launches + one chunk of work
@@ -431,9 +540,14 @@ def train_deepsdf(
     first_chunk_n = 0
 
     def snapshot():
-        save_native_checkpoint(experiment_directory, checkpoint, params, spec,
-                               latent_codes=codes)
-        _save_train_state(experiment_directory, params, codes, opt, gens, e, losses)
+        states = _generator_states(gens, mesh)
+
+        def write():
+            save_native_checkpoint(experiment_directory, checkpoint, params, spec,
+                                   latent_codes=codes)
+            _save_train_state(experiment_directory, params, codes, opt, states, e, losses)
+
+        rank0_writes(write)
 
     while e < num_epochs:
         n = min(epochs_per_call, num_epochs - e)
@@ -456,15 +570,23 @@ def train_deepsdf(
         "steady_epochs": max(0, (num_epochs - e_start) - first_chunk_n),
         "steps_per_epoch": steps_per_epoch,
     }
+    if world > 1:
+        timing["gather_s"] = gather_s[0]
 
     path = None
     if save:
-        path = save_native_checkpoint(experiment_directory, checkpoint, params, spec,
-                                      latent_codes=codes)
-        if snapshot_every:
-            # keep the training state current, so a later resume with a
-            # larger num_epochs extends this run
-            _save_train_state(experiment_directory, params, codes, opt, gens, e, losses)
+        # keep the training state current, so a later resume with a larger
+        # num_epochs extends this run
+        states = _generator_states(gens, mesh) if snapshot_every else None
+
+        def write():
+            save_native_checkpoint(experiment_directory, checkpoint, params, spec,
+                                   latent_codes=codes)
+            if snapshot_every:
+                _save_train_state(experiment_directory, params, codes, opt, states, e, losses)
+
+        rank0_writes(write)
+        path = os.path.join(experiment_directory, NATIVE_SUBDIR, checkpoint + ".npz")
         log(f"saved {path}")
     out = {k: {kk: v.detach() for kk, v in p.items()} for k, p in params.items()}
     return TrainResult(out, codes.detach().cpu().numpy(), np.asarray(losses), names, path,

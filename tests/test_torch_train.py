@@ -251,10 +251,12 @@ def test_mesh_training_matches_jax_data_parallel(tmp_path, data, monkeypatch):
 def test_mesh_training_resume_is_bit_identical(tmp_path, data):
     """Under a mesh of 3 shards: each shard's generator is in the snapshot,
     so a run resumed from it ends bit for bit where the straight run ends;
-    a snapshot of another number of shards is refused, and so is a mesh
-    that spans processes."""
+    a snapshot of another number of shards is refused. A mesh that spans
+    processes trains: 2 processes of one shard each (gloo on 127.0.0.1,
+    `tools/multihost_smoke.py --train`) end bit-equal to the one-process
+    2-shard run (`tests/test_torch_train_mp.py` holds the other layouts)."""
     from hortimapping_tpu_torch.parallel import fruit_mesh
-    from hortimapping_tpu_torch.parallel.sharding import FruitMesh
+    from hortimapping_tpu_torch.tools import multihost_smoke
 
     mesh = fruit_mesh(devices=["cpu"] * 3)
     kw = dict(num_epochs=6, save=False, device="cpu", mesh=mesh, **QUIET)
@@ -270,8 +272,20 @@ def test_mesh_training_resume_is_bit_identical(tmp_path, data):
             assert torch.equal(res_a.params[name][k], res_b.params[name][k])
     with pytest.raises(ValueError, match="on 3 shards, not 2"):
         tdeep.train_deepsdf(exp_b, resume=True, **dict(kw, mesh=fruit_mesh(devices=["cpu"] * 2)))
-    with pytest.raises(NotImplementedError, match="Multi-process training"):
-        tdeep.train_deepsdf(exp_a, **dict(kw, mesh=FruitMesh(mesh.devices, 0, 2)))
+    exp_c = _experiment(tmp_path / "processes", data)
+    want = tdeep.train_deepsdf(exp_c, **dict(kw, num_epochs=2,
+                                              mesh=fruit_mesh(devices=["cpu"] * 2)))
+    out = str(tmp_path / "out")
+    for rc, said, report in multihost_smoke.run_workers(
+            ["--device", "cpu", "--train", exp_c, "--local_shards", "1", "--epochs", "2",
+             "--out", out], timeout=100):
+        assert rc == 0 and report is not None and report["shards"] == 2, said[-4000:]
+        with np.load(os.path.join(out, f"rank{report['process_id']}.npz")) as z:
+            assert np.array_equal(z["losses"], want.losses)
+            assert np.array_equal(z["codes"], want.latent_codes)
+            for name in want.params:
+                for k in ("w", "b"):
+                    assert np.array_equal(z[f"params.{name}.{k}"], want.params[name][k].numpy())
 
 
 def test_python_m_entry_writes_a_checkpoint(tmp_path, data):
