@@ -28,6 +28,7 @@ from hortimapping_tpu_torch.data.mesh import TriangleMesh
 from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params, decoder_apply
 from hortimapping_tpu_torch.ops import mlp_kernels
+from hortimapping_tpu_torch.utils import trace
 
 ACTIVATION_BUDGET = 6 * 1024**3
 
@@ -124,15 +125,17 @@ class MeshExtractor:
         return head, grids.reshape(-1, d, d, d)
 
     def meshes_from_grids(self, grids: torch.Tensor) -> List[TriangleMesh]:
-        """Host iso-surfacing of grids from `decode_grids`."""
+        """Host iso-surfacing of grids from `decode_grids` (span `mesh.host`
+        while tracing is on)."""
         d = self.voxels_dim
-        host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
-        # threads pay only from 64^3 up: the native call releases the GIL,
-        # but at smaller grids the per-fruit numpy work around it dominates
-        if host.shape[0] > 4 and d >= 64:
-            with ThreadPoolExecutor(max_workers=min(8, host.shape[0])) as ex:
-                return list(ex.map(self._grid_to_mesh, host))
-        return [self._grid_to_mesh(g) for g in host]
+        with trace.span("mesh.host", fruits=grids.shape[0]):
+            host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
+            # threads pay only from 64^3 up: the native call releases the GIL,
+            # but at smaller grids the per-fruit numpy work around it dominates
+            if host.shape[0] > 4 and d >= 64:
+                with ThreadPoolExecutor(max_workers=min(8, host.shape[0])) as ex:
+                    return list(ex.map(self._grid_to_mesh, host))
+            return [self._grid_to_mesh(g) for g in host]
 
     def extract_batch(self, latents: torch.Tensor) -> List[TriangleMesh]:
         return self.meshes_from_grids(self.decode_grids(latents))

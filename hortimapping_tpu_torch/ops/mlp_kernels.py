@@ -23,6 +23,7 @@ import torch
 
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 from hortimapping_tpu_torch.ops import cuda_build
+from hortimapping_tpu_torch.utils import trace
 
 MAX_WIDTH = 512      # widest hidden layer the kernels take (stream_chain.cuh kMaxWidth)
 PLAIN_ROWS = 1 << 16  # rows per pass of the plain chain (bounds its activations)
@@ -36,17 +37,12 @@ STAGE_K_F32 = 8
 STREAM_NAMES = ("fwd_stream", "bwd_stream", "wl", "b0", "bm")
 
 # launches of each CUDA kernel since its count was last set to 0: B1
-# (fwd+input grad), B3 (forward), B4 (shared-latent forward); shards of the
-# fruit mesh launch from several threads, so each count moves under the lock
+# (fwd+input grad), B3 (forward), B4 (shared-latent forward)
+# (`utils/trace.count`)
 launches = 0
 launches_fwd = 0
 launches_shared_latent = 0
-_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _lock:
-        globals()[name] += 1
+_lock = threading.Lock()   # the C entries' argument types, bound once
 
 
 def supported(spec: DecoderSpec) -> bool:
@@ -354,7 +350,7 @@ def _fwd_grad_cuda(pk: PackedDecoder, x: torch.Tensor,
         sdf.data_ptr(), grad.data_ptr(),
     )
     cuda_build.check(rc, "horti_mlp_fwd_grad")
-    _count("launches")
+    trace.count(globals(), "launches")
     return sdf, grad
 
 
@@ -381,7 +377,7 @@ def _fwd_cuda(pk: PackedDecoder, x: torch.Tensor) -> torch.Tensor:
         *pk.stream_ptrs(), pk.bl, sdf.data_ptr(),
     )
     cuda_build.check(rc, "horti_mlp_fwd")
-    _count("launches_fwd")
+    trace.count(globals(), "launches_fwd")
     return sdf
 
 
@@ -401,7 +397,7 @@ def _shared_latent_cuda(pk: PackedDecoder, latents: torch.Tensor, pts: torch.Ten
         int(pk.bf16), *pk.stream_ptrs(), pk.bl, out.data_ptr(),
     )
     cuda_build.check(rc, "horti_mlp_shared_latent")
-    _count("launches_shared_latent")
+    trace.count(globals(), "launches_shared_latent")
     return out
 
 

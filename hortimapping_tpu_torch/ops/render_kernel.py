@@ -28,6 +28,7 @@ from hortimapping_tpu_torch.ops import cuda_build
 from hortimapping_tpu_torch.ops import mlp_kernels
 from hortimapping_tpu_torch.ops.mlp_kernels import STREAM_NAMES, PackedDecoder, chain_plain
 from hortimapping_tpu_torch.ops.sdf import logistic_sigma
+from hortimapping_tpu_torch.utils import trace
 
 TILE_ROWS = 128             # samples per block: TR = TILE_ROWS // M rays (fused_render.cu kTileRows)
 MAX_SMEM = 232448           # dynamic shared memory a block may use on the H100
@@ -35,17 +36,10 @@ REC_FLOATS = 8              # floats a band record (fused_render.cu kRec)
 
 # launches of the three CUDA kernels since the counts were last set to 0:
 # forward + render (one per call: the count of the TPU kernel's port), band
-# backward, per-ray sums; each moves under the lock (shards of the fruit mesh
-# launch from several threads)
+# backward, per-ray sums (`utils/trace.count`)
 launches = 0
 launches_band = 0
 launches_sum = 0
-_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _lock:
-        globals()[name] += 1
 
 
 def _round_up(v: int, m: int) -> int:
@@ -154,6 +148,7 @@ def fused_render_plain(
 
 
 _argtypes_set = False
+_lock = threading.Lock()
 
 
 def _lib() -> ctypes.CDLL:
@@ -275,7 +270,7 @@ def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_rad
         res.data_ptr(), recs.data_ptr(), counts.data_ptr(),
     )
     cuda_build.check(rc, "horti_render_forward")
-    _count("launches")
+    trace.count(globals(), "launches")
     return RenderLaunches(B, F, R, M, C, pose_dim + C, tr, tiles_x, res, recs, counts)
 
 
@@ -305,7 +300,7 @@ def render_band(pk, latent, rl: RenderLaunches, offsets: torch.Tensor,
         cd.data_ptr(), cm.data_ptr(),
     )
     cuda_build.check(rc, "horti_render_band")
-    _count("launches_band")
+    trace.count(globals(), "launches_band")
     return cd, cm
 
 
@@ -322,7 +317,7 @@ def render_sum(rl: RenderLaunches, offsets: torch.Tensor, cd: torch.Tensor,
         rl.B, rl.F, rl.R, rl.tr, rl.tiles_x, rl.tr * rl.M, rl.J, jd.data_ptr(), jm.data_ptr(),
     )
     cuda_build.check(rc, "horti_render_sum")
-    _count("launches_sum")
+    trace.count(globals(), "launches_sum")
     return jd, jm
 
 
@@ -331,6 +326,7 @@ def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx
     rl = render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
                         lane_active, **render_kw)
     offsets = band_offsets(rl.counts)
+    trace.add("render.band_rows", offsets[-1])   # on the card, only while tracing
     cd, cm = render_band(pk, latent, rl, offsets, render_kw["pose_dim"])
     jd, jm = render_sum(rl, offsets, cd, cm)
     return jd, jm, rl.res

@@ -10,7 +10,8 @@ solvers (`shape_pose_joint_opt(_traced)`) and the serving solve
 `lax.while_loop` with frozen lanes is a Python loop that steps every lane
 until all are done or failed (one host sync per iteration, for that test:
 `parallel/sharding.host_read`, where a shard of the fruit mesh hands the
-host to the other shards while it waits).
+host to the other shards while it waits; `_loop`, with its spans while
+tracing is on, `utils/trace.py`).
 Frozen lanes keep their state bit for bit.
 
 The render term runs through the fused render kernel and the SDF term
@@ -37,6 +38,7 @@ from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals, ta
 from hortimapping_tpu_torch.ops.robust import huber_weights
 from hortimapping_tpu_torch.optim.state import FruitObservations, OptResult, OptState, init_state
 from hortimapping_tpu_torch.parallel.sharding import host_read, pad_to_multiple
+from hortimapping_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -441,29 +443,61 @@ def _tr_result(final: TrState) -> OptResult:
     )
 
 
+def _loop(step, state, ended, phase: str):
+    """Steps `state` until every lane has ended (`ended(state)`: done or
+    failed, [B]), reading one flag back to the host an iteration. While
+    tracing is on, the loop is span `lm.solve` (`phase`, or `rescue` inside
+    the rescue; its width), each iteration span `lm.iteration` (the lanes
+    active on entry) up to the return of its flag read, span `lm.readback`;
+    the read then brings the count of active lanes, which the loop tests
+    for non-zero, in place of `any`."""
+    if not trace.enabled():
+        while host_read((~ended(state)).any()):
+            state = step(state)
+        return state
+    phase = "rescue" if trace.inside("lm.rescue") else phase
+    live = ~ended(state)
+    with trace.span("lm.solve", phase=phase, width=live.shape[0]):
+        with trace.span("lm.readback"):
+            active = host_read(live.sum())
+        while active:
+            with trace.span("lm.iteration", active=active):
+                state = step(state)
+                with trace.span("lm.readback"):
+                    active = host_read((~ended(state)).sum())
+    return state
+
+
 def _solve_batched(params, spec, cfg, obs, s0: OptState, cube_radius, pose_known, packs,
-                   code_known: bool = False):
-    s = s0
-    while host_read((~(s.done | s.failed)).any()):
+                   code_known: bool = False, phase: str = "main"):
+    def step(s):
         new = lm_iteration(params, spec, cfg, obs, s, cube_radius, pose_known, packs, code_known)
-        s = _freeze_if_done(s, new)
+        return _freeze_if_done(s, new)
+
+    s = _loop(step, s0, lambda s: s.done | s.failed, phase)
     return OptResult(s.latent, s.T_ow, s.iter_count, s.failed, s.converged)
 
 
-def _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs):
-    ts = init_tr_state(latent0, T_ow0, cfg)
-    while host_read((~(ts.base.done | ts.base.failed)).any()):
-        ts = _freeze_if_done_tr(ts, lm_iteration_tr(params, spec, cfg, obs, ts, cube_radius,
-                                                    pose_known, packs))
+def _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs,
+              phase: str = "main"):
+    def step(ts):
+        return _freeze_if_done_tr(ts, lm_iteration_tr(params, spec, cfg, obs, ts, cube_radius,
+                                                      pose_known, packs))
+
+    ts = _loop(step, init_tr_state(latent0, T_ow0, cfg),
+               lambda ts: ts.base.done | ts.base.failed, phase)
     return _tr_result(ts)
 
 
-def _solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs) -> OptResult:
-    """The configured single-phase solver: trust region or fixed lambda."""
+def _solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs,
+           phase: str = "main") -> OptResult:
+    """The configured single-phase solver: trust region or fixed lambda;
+    `phase` names its loop's span."""
     if cfg.trust_region:
-        return _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs)
+        return _solve_tr(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, packs,
+                         phase)
     return _solve_batched(params, spec, cfg, obs, init_state(latent0, T_ow0), cube_radius,
-                          pose_known, packs)
+                          pose_known, packs, phase=phase)
 
 
 def _prepare(device, cfg: JointOptConfig, obs: FruitObservations, *tensors: torch.Tensor):
@@ -517,7 +551,7 @@ def pose_polish_batched(
     polish_cfg = dataclasses.replace(cfg, max_iter=cfg.pose_polish_iters)
     s0 = init_state(res.latent, res.T_ow)._replace(done=res.failed, failed=res.failed)
     final = _solve_batched(params, spec, polish_cfg, obs, s0, cube_radius, False, packs,
-                           code_known=True)
+                           code_known=True, phase="polish")
     return OptResult(res.latent, final.T_ow, res.iter_count + final.iter_count, res.failed,
                      res.converged)
 
@@ -602,7 +636,7 @@ def coarse_to_fine_joint_opt(
         packs = make_packs(params, spec, cfg)
     coarse_obs, coarse_cfg = subsample_observations(obs, cfg)
     r_a = _solve(params, spec, coarse_cfg, coarse_obs, latent0, T_ow0, cube_radius, pose_known,
-                 packs)
+                 packs, "coarse")
     fine_obs, fine_cfg = obs, cfg
     if (cfg.fine_frame_stride > 1 or cfg.fine_ray_frac < 1.0
             or cfg.fine_sample_frac < 1.0 or cfg.fine_pts_frac < 1.0):
@@ -616,7 +650,8 @@ def coarse_to_fine_joint_opt(
     ff = r_a.failed.to(torch.float32)[:, None]
     lat1 = (1.0 - ff) * r_a.latent + ff * latent0
     T1 = (1.0 - ff[..., None]) * r_a.T_ow + ff[..., None] * T_ow0
-    r_b = _solve(params, spec, fine_cfg, fine_obs, lat1, T1, cube_radius, pose_known, packs)
+    r_b = _solve(params, spec, fine_cfg, fine_obs, lat1, T1, cube_radius, pose_known, packs,
+                 "fine")
     return r_b._replace(iter_count=r_a.iter_count + r_b.iter_count)
 
 

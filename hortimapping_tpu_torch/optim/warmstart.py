@@ -30,6 +30,7 @@ from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params, decoder_a
 from hortimapping_tpu_torch.ops import mlp_kernels
 from hortimapping_tpu_torch.optim import lm
 from hortimapping_tpu_torch.optim.state import FruitObservations, OptResult
+from hortimapping_tpu_torch.utils import trace
 
 # Per-lane evidence of the most recent `selective_rescue` of a
 # `warmstart_solve` (cleared at every call): which lanes were re-solved, the
@@ -227,8 +228,11 @@ def warmstart_solve(
     res = lm.solve_in_chunks(params, spec, opt_cfg, obs, latent0, T_ow0, cube_radius, pose_known,
                              device=dev, packs=packs)
     if opt_cfg.rescue_starts > 0 and opt_cfg.init_mode == "retrieval":
-        res, LAST_RESCUE_INFO = selective_rescue(params, spec, opt_cfg, obs, res, latent_table,
-                                                 T_orig, cube_radius, pose_known, dev, packs)
+        # while tracing is on: span `lm.rescue`, whose LM loops take phase `rescue`
+        with trace.span("lm.rescue"):
+            res, LAST_RESCUE_INFO = selective_rescue(params, spec, opt_cfg, obs, res,
+                                                     latent_table, T_orig, cube_radius,
+                                                     pose_known, dev, packs)
     return res
 
 

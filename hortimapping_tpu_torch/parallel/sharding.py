@@ -163,15 +163,16 @@ def pad_to_multiple(
 _shard = threading.local()   # `turn`: the host turn of the shard thread running here
 
 
-def host_read(t: torch.Tensor) -> bool:
-    """bool(t): on a shard thread the host turn goes to the other shards
-    while this one waits for its device to produce t."""
+def host_read(t: torch.Tensor):
+    """The value of the one-element t on the host: on a shard thread the
+    host turn goes to the other shards while this one waits for its device
+    to produce t."""
     turn = getattr(_shard, "turn", None)
     if turn is None:
-        return bool(t)
+        return t.item()
     turn.release()
     try:
-        return bool(t)
+        return t.item()
     finally:
         turn.acquire()
 

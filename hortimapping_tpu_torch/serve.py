@@ -29,6 +29,10 @@ packs the next: the LM loop reads its convergence flags back once an
 iteration, so a one-deep pipeline would overlap nothing on the card (batch
 k's copy would queue behind batch k+1's grid decode on the one stream) and
 would hold batch k's results until batch k+1 is solved.
+
+While tracing is on (`utils/trace.py`) the worker records each request's
+queue wait (`serve.queue`), each batch (`serve.batch`) and its solve
+(`serve.solve`).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
 from hortimapping_tpu_torch.optim import lm
 from hortimapping_tpu_torch.optim.state import FruitObservations, upload
 from hortimapping_tpu_torch.parallel.sharding import FruitMesh, fruit_mesh, shard_joint_opt
+from hortimapping_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -226,6 +231,7 @@ class CompletionServer:
         # per-shape-bucket FIFOs, owned by the worker thread (stop() drains
         # them only after the join)
         self._pending: Dict[Tuple, "deque"] = {}
+        self._seq = 0   # batches taken by the worker (the `batch` of its spans)
 
     # ---------------- lifecycle ----------------
 
@@ -373,6 +379,13 @@ class CompletionServer:
         return res, lm.pack_result(res)
 
     def stats(self) -> Dict:
+        """Counts and rates since `start()`, for an operator's glance.
+        Latency runs from `submit()` (`time.perf_counter`) to the result,
+        mesh included, over the last 4096 completions; `fruits_per_sec` is
+        the completions over the wall time since `start()`, idle time
+        included. Queue wait alone, and each batch's host and solve time,
+        are the spans `serve.queue`, `serve.batch` and `serve.solve`
+        (`utils/trace.py`) under a profiler session."""
         with self._lock:
             lat = sorted(self._latencies)
             n = self._completed
@@ -441,6 +454,13 @@ class CompletionServer:
         batch = [dq.popleft() for _ in range(min(self.max_batch, len(dq)))]
         if not dq:
             del self._pending[key]
+        self._seq += 1
+        if trace.enabled():
+            # each request's wait, from the t_sub that submit() stamped
+            now = time.perf_counter_ns()
+            for req, _, t_sub in batch:
+                trace.record("serve.queue", round(t_sub * 1e9), now, group=self._seq,
+                             fruit=req.fruit_id, batch=self._seq)
         return batch
 
     def _serve(self, batch) -> None:
@@ -454,7 +474,8 @@ class CompletionServer:
             # the next power of two, not max_batch: a one-fruit batch must
             # not pay for a full-width solve
             obs, lat0, T0 = _assemble_batch_np(reqs, self._batch_width(n))
-            res, packed_dev = self._solve(obs, lat0, T0, reqs[0].pose_known)
+            with trace.span("serve.solve", batch=self._seq):
+                res, packed_dev = self._solve(obs, lat0, T0, reqs[0].pose_known)
             C = res.latent.shape[1]
             grids = None
             if self.mesher is not None:
@@ -504,4 +525,6 @@ class CompletionServer:
             # honour a client's Future.cancel() before paying for the lane
             batch = [b for b in batch if b[1].set_running_or_notify_cancel()]
             if batch:
-                self._serve(batch)
+                with trace.span("serve.batch", group=self._seq, batch=self._seq,
+                                lanes=len(batch), width=self._batch_width(len(batch))):
+                    self._serve(batch)

@@ -13,10 +13,12 @@ import getpass
 import os
 import random
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import torch
+
+from hortimapping_tpu_torch.utils import trace
 
 
 def set_random_seed(seed: int) -> None:
@@ -35,33 +37,12 @@ def get_time() -> float:
     return time.time()
 
 
-class Timer:
-    """Per-phase accumulator of wall time behind a device sync."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-        self._t0: Optional[float] = None
-        self._phase: Optional[str] = None
-
-    def start(self, phase: str) -> None:
-        self._phase = phase
-        self._t0 = get_time()
-
-    def stop(self) -> float:
-        dt = get_time() - self._t0
-        self.totals[self._phase] = self.totals.get(self._phase, 0.0) + dt
-        self.counts[self._phase] = self.counts.get(self._phase, 0) + 1
-        return dt
-
-    def summary(self) -> str:
-        return ", ".join(f"{k}: {v:.3f}s/{self.counts[k]}x" for k, v in self.totals.items())
-
-
 class trace_if_enabled:
     """Context manager: trace the block with `torch.profiler` when the
     environment variable `HORTI_PROFILE_DIR` is set, writing a Chrome trace
-    `<dir>/<label>.json`; does nothing otherwise."""
+    `<dir>/<label>.json` that also holds the program's spans and counters
+    on the trace's clock (`utils/trace.add_to_chrome_trace`), so host spans
+    and kernels share one timeline; does nothing otherwise."""
 
     def __init__(self, label: str = "horti"):
         self.dir = os.environ.get("HORTI_PROFILE_DIR")
@@ -83,8 +64,10 @@ class trace_if_enabled:
         if self._prof is not None:
             self._prof.__exit__(*exc)
             os.makedirs(self.dir, exist_ok=True)
-            self._prof.export_chrome_trace(os.path.join(self.dir, f"{self.label}.json"))
+            path = os.path.join(self.dir, f"{self.label}.json")
+            self._prof.export_chrome_trace(path)
             self._prof = None
+            trace.add_to_chrome_trace(path)
         return False
 
 

@@ -4,6 +4,7 @@ pose init and ray sampling on the same seeded numpy inputs. Where the JAX
 function is numpy the port must be bit-identical: no tolerance below is
 looser than equality unless it says why."""
 
+import json
 import os
 import struct
 import zlib
@@ -28,6 +29,7 @@ from hortimapping_tpu_torch.data import ply as tply
 from hortimapping_tpu_torch.data import preprocess as tpre
 from hortimapping_tpu_torch.data import rays as trays
 from hortimapping_tpu_torch.utils import misc as tmisc
+from hortimapping_tpu_torch.utils import trace
 from hortimapping_tpu_torch.vis import StubVisualizer, color_table, make_visualizer
 
 
@@ -418,14 +420,19 @@ def test_seed_timer_trace_and_vis(tmp_path, monkeypatch):
     tmisc.set_random_seed(42)
     assert torch.equal(torch.rand(2), t1)
 
-    timer = tmisc.Timer()
-    timer.start("x")
-    assert timer.stop() >= 0.0 and "x:" in timer.summary()
-
+    # the Chrome trace holds the program's spans, on the trace's clock
     monkeypatch.setenv("HORTI_PROFILE_DIR", str(tmp_path))
     with tmisc.trace_if_enabled("probe"):
-        torch.ones(4).sum()
+        with trace.span("probe.span", fruits=2):
+            with torch.profiler.record_function("probe.range"):
+                torch.ones(4).sum()
     assert os.path.isfile(tmp_path / "probe.json")
+    with open(tmp_path / "probe.json") as f:
+        events = json.load(f)["traceEvents"]
+    (sp,) = [e for e in events if e.get("cat") == "program_span" and e["name"] == "probe.span"]
+    (rng,) = [e for e in events if e.get("name") == "probe.range"]
+    assert sp["args"]["fruits"] == 2
+    assert sp["ts"] - 100 <= rng["ts"] and rng["ts"] + rng["dur"] <= sp["ts"] + sp["dur"] + 100
 
     assert color_table == jcolor_table
     vis = make_visualizer(True)
