@@ -3,7 +3,7 @@
 
 Phases (one line each; any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit, torch/CUDA versions, the build
-     of the four kernel libraries (nvcc, in parallel) and of the host library
+     of the five kernel libraries (nvcc, in parallel) and of the host library
      (g++);
   2. B3, the decoder forward kernel, vs its plain PyTorch version at both
      retrieval scoring shapes (bench: bf16, 16 fruits x 256 codes x 128
@@ -19,13 +19,18 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      (ROADMAP.md "Rules") plus a small f32 case, each bit-equal across two
      launches; B1 in the lanes form the LM launches (two frozen lanes),
      beside one flat launch of the same rows; B2's time split by launch with
-     its band rows and their fill of 64-row chunks;
+     its band rows and their fill of 64-row chunks; then the LM solve
+     kernel on the damped normal equations of the batch (B = 32: the bench
+     config and the greenhouse config, D = 39, and the greenhouse config in
+     SE(3), D = 38; three successive iterates each) vs float64 and
+     `torch.linalg.solve_ex` at 1e-5, timed against solve_ex;
   5. the bench path: the bench.py workload (32 synthetic peppers, seed 42)
      at the full width of assets/synthetic_pepper_32 through retrieval warm
      start, coarse-to-fine LM and 40^3 meshing, timed with its split, mean
-     Chamfer-L1 against the analytic GT surfaces and all four launch counts;
+     Chamfer-L1 against the analytic GT surfaces and all five launch counts;
      then its functional gate: the same with every kernel swapped for its
-     plain version must reach the same mean Chamfer-L1 within 0.3 mm;
+     plain version (and the LM iteration eager, no CUDA graphs) must reach
+     the same mean Chamfer-L1 within 0.3 mm;
   6. the greenhouse path: configs/cka_pepper_tpu.yaml on the same batch
      through `warmstart_solve` (f32 retrieval, 50-iteration LM with damped
      rotation tangents, selective multi-start rescue) and
@@ -153,7 +158,7 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      points within 1.5x the shipped decoder's; the shipped decoder written as
      the reference's weight-normed `.pth` files and loaded on the card, its
      SDF within 1e-6 of the native load's;
- 19. one JSON line of kernel records (the four kernels at their greenhouse
+ 19. one JSON line of kernel records (the five kernels at their greenhouse
      shapes, then each kernel on the greenhouse-from-disk runs and the
      served batches, B4 on the trained decoder, the four at the interactive
      path's shapes, B1 and B3 on the compacted rows, B1 and B2 at the
@@ -173,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -233,6 +239,8 @@ KERNEL_SOURCES = {             # kernel: (its source, the TPU kernel it replaces
     "mlp_fwd": ("hortimapping_tpu_torch/csrc/mlp_fwd.cu", "hortimapping_tpu/ops/pallas_mlp.py:169"),
     "mlp_shared_latent": ("hortimapping_tpu_torch/csrc/mlp_shared_latent.cu",
                           "hortimapping_tpu/ops/pallas_mlp.py:303"),
+    # no TPU kernel: the JAX package leaves this solve to XLA
+    "lm_solve": ("hortimapping_tpu_torch/csrc/lm_solve.cu", "hortimapping_tpu/optim/lm.py:256"),
 }
 # B3 in bf16 vs its plain version: a summation-order flip moves one
 # activation by one bf16 ulp (2^-8 relative), which reaches the tanh output
@@ -512,6 +520,56 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, split=split)
 
 
+def check_solve(label, params, spec, cfg, obs, latent, T_ow, dev, iterates=3):
+    """The LM solve kernel on the damped normal equations of a batch under
+    `cfg`, at `iterates` successive iterates from (latent, T_ow): within
+    1e-5 of the float64 solution (each lane's largest gap over its largest
+    entry) and within 1e-5 of `torch.linalg.solve_ex` beyond solve_ex's own
+    distance to it, one launch a solve, bit-equal across two launches; then
+    timed against solve_ex on the last system."""
+    import torch
+
+    from hortimapping_tpu_torch.ops import linalg
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.optim.state import init_state
+
+    def rel(a, ref):
+        return (a.double() - ref).abs().max(-1).values / ref.abs().max(-1).values
+
+    packs = lm.make_packs(params, spec, cfg)
+    s = init_state(latent, T_ow)
+    worst = worst_ex = worst_gap = 0.0
+    for _ in range(iterates):
+        H, b, _ = lm.normal_equations(params, spec, cfg, obs, s.latent, s.T_ow, s.i, CUBE_RADIUS,
+                                      None, packs)
+        before = linalg.launches
+        got, again = linalg.solve(H, b), linalg.solve(H, b)
+        want = solve_plain(H, b)
+        exact = torch.linalg.solve(H.double(), b.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        assert linalg.launches == before + 2, (label, linalg.launches - before)
+        assert torch.equal(got, again), (label, "the solve differs between launches")
+        assert bool(torch.isfinite(want).all()), label
+        err, err_ex, gap = rel(got, exact), rel(want, exact), rel(got, want.double())
+        assert float(err.max()) <= 1e-5 and bool((gap <= 1e-5 + err_ex).all()), (
+            label, float(err.max()), float((gap - err_ex).max()))
+        worst, worst_ex = max(worst, float(err.max())), max(worst_ex, float(err_ex.max()))
+        worst_gap = max(worst_gap, float(gap.max()))
+        s = lm._freeze_if_done(s, lm.lm_iteration(params, spec, cfg, obs, s, CUBE_RADIUS, False,
+                                                  packs))
+    B, D = b.shape
+    ms = cuda_ms(lambda: linalg.solve(H, b), 50)
+    plain_ms = cuda_ms(lambda: solve_plain(H, b), 20)
+    # LU of [D, D + 1] and two triangular solves a lane; H, b in and x out
+    flops = B * (2.0 / 3.0 * D ** 3 + 2.0 * D ** 2)
+    bound_ms, bound_by = bound(4.0 * B * (D * D + 2 * D), flops, H100_F32_FLOPS)
+    print(f"LM solve kernel vs solve_ex, {label}: B={B} D={D}, {iterates} iterates | largest "
+          f"lane error vs float64 {worst:.3g} (solve_ex's {worst_ex:.3g}), gap to solve_ex "
+          f"{worst_gap:.3g} (gate 1e-5 beyond solve_ex's error) | kernel {ms:.4f} ms, solve_ex "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    return dict(err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def wave_schedule(name: str, pk, chunks: int, ms: float) -> str:
     """The schedule of a forward-only launch (B3 `mlp_fwd`, B4
     `mlp_shared_latent`) of `chunks` 64-row chunks, as the kernel computes
@@ -734,25 +792,27 @@ def profile_main(run, smi, path: str, label: str) -> None:
 
 
 class LaunchCounts:
-    """The four kernels' launch counters: set to 0 when made, read by
+    """The five kernels' launch counters: set to 0 when made, read by
     `read` after the run they count."""
 
-    ALL = ("mlp_fwd_grad", "fused_render", "mlp_fwd", "mlp_shared_latent")
+    ALL = ("mlp_fwd_grad", "fused_render", "mlp_fwd", "mlp_shared_latent", "lm_solve")
 
     def __init__(self):
-        from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+        from hortimapping_tpu_torch.ops import linalg, mlp_kernels, render_kernel
 
         mlp_kernels.launches = mlp_kernels.launches_fwd = mlp_kernels.launches_shared_latent = 0
         render_kernel.launches = render_kernel.launches_band = render_kernel.launches_sum = 0
+        linalg.launches = 0
         self.n = {}
         self.b2 = {}
 
     def read(self) -> None:
-        from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+        from hortimapping_tpu_torch.ops import linalg, mlp_kernels, render_kernel
 
         self.n = dict(mlp_fwd_grad=mlp_kernels.launches, fused_render=render_kernel.launches,
                       mlp_fwd=mlp_kernels.launches_fwd,
-                      mlp_shared_latent=mlp_kernels.launches_shared_latent)
+                      mlp_shared_latent=mlp_kernels.launches_shared_latent,
+                      lm_solve=linalg.launches)
         self.b2 = dict(band=render_kernel.launches_band, sums=render_kernel.launches_sum)
 
     def require(self, names, path: str) -> None:
@@ -820,15 +880,27 @@ class Stages:
         return out
 
 
+def solve_plain(H, b):
+    """The LM solve's plain version: `torch.linalg.solve_ex` (its LU
+    synchronizes the device)."""
+    import torch
+
+    return torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Every kernel swapped for its plain PyTorch version, on the card."""
-    from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
+    """Every kernel swapped for its plain PyTorch version, on the card, and
+    the LM iteration eager (no CUDA graphs)."""
+    from hortimapping_tpu_torch.ops import linalg, mlp_kernels, render_kernel
+    from hortimapping_tpu_torch.optim import lm
 
     swaps = ((mlp_kernels, "_fwd_grad_cuda", mlp_kernels._fwd_grad_plain),
              (render_kernel, "_fused_render_cuda", render_kernel.fused_render_plain),
              (mlp_kernels, "_fwd_cuda", mlp_kernels.forward_plain),
-             (mlp_kernels, "_shared_latent_cuda", mlp_kernels.shared_latent_plain))
+             (mlp_kernels, "_shared_latent_cuda", mlp_kernels.shared_latent_plain),
+             (linalg, "_solve_cuda", solve_plain),
+             (lm, "CUDA_GRAPHS", False))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -3142,6 +3214,16 @@ def main() -> int:
     b2["greenhouse"] = check_render("greenhouse", pk16, pk32, obs, gh_cfg, lat_g, T_g, dev)
     records["fused_render"] = kernel_record(
         "fused_render", dict(b2["greenhouse"], err=max(r["err"] for r in b2.values())), 0,
+        GH_MEMORY)
+
+    # the LM solve kernel on the batch's damped normal equations
+    solves = {"bench": check_solve("bench", params, spec, cfg, obs, lat_r, T_r, dev),
+              "greenhouse": check_solve("greenhouse", params, spec, gh_cfg, obs, lat_g, T_g, dev),
+              "greenhouse SE(3)": check_solve("greenhouse SE(3)", params, spec,
+                                              dataclasses.replace(gh_cfg, scale_on=False), obs,
+                                              lat_g, T_g, dev)}
+    records["lm_solve"] = kernel_record(
+        "lm_solve", dict(solves["greenhouse"], err=max(r["err"] for r in solves.values())), 0,
         GH_MEMORY)
     if args.quick:
         print(json.dumps({"kernels": list(records.values())}))

@@ -26,7 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("mlp_fwd_grad", "fused_render", "mlp_fwd", "mlp_shared_latent")
+KERNELS = ("mlp_fwd_grad", "fused_render", "mlp_fwd", "mlp_shared_latent", "lm_solve")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

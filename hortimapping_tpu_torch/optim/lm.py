@@ -17,13 +17,22 @@ Frozen lanes keep their state bit for bit.
 The render term runs through the fused render kernel and the SDF term
 through the fwd+input-grad kernel wherever the decoder is kernel-supported;
 the device of the tensors decides between kernel (CUDA) and plain version
-(CPU).
+(CPU). On the card the damped normal equations are solved by the kernel of
+`ops/linalg.py`, which never synchronizes, and `lm_iteration` replays the
+code around its two decoder terms as CUDA graphs (`optim/graphs.py`): the
+render geometry before the render term, the render term's normal
+equations and the point transform between the terms, and the SDF term's
+normal equations, the damping, the solve, the step and the convergence
+tests after them. `render_residuals` and `sdf_residuals` stay eager calls,
+once an iteration.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -31,14 +40,24 @@ import torch
 from hortimapping_tpu_torch.config import JointOptConfig
 from hortimapping_tpu_torch.device import resolve_device
 from hortimapping_tpu_torch.models.decoder import DecoderSpec, Params
-from hortimapping_tpu_torch.ops import mlp_kernels
+from hortimapping_tpu_torch.ops import linalg, mlp_kernels
 from hortimapping_tpu_torch.ops.lie import exp_se3, exp_sim3_ref, rotation_matrix_to_angle
 from hortimapping_tpu_torch.ops.recon import sdf_residuals
 from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals, takes_fused
 from hortimapping_tpu_torch.ops.robust import huber_weights
+from hortimapping_tpu_torch.optim.graphs import IterationGraphs
 from hortimapping_tpu_torch.optim.state import FruitObservations, OptResult, OptState, init_state
-from hortimapping_tpu_torch.parallel.sharding import host_read, pad_to_multiple
+from hortimapping_tpu_torch.parallel.sharding import host_read, on_shard_thread, pad_to_multiple
 from hortimapping_tpu_torch.utils import trace
+
+CUDA_GRAPHS = True   # on the card, replay the iteration's own code as CUDA graphs
+# keys of `lm_iteration` kept (graphs, or seen once), least recent dropped:
+# a served shape bucket has a coarse and a fine key for each of the packer's
+# 6 widths, and one more for each layout its warm-up did not see
+MAX_GRAPHED = 32
+graph_captures = 0   # keys captured, three graphs each (`utils/trace.count`)
+_graphed: "OrderedDict[tuple, Optional[IterationGraphs]]" = OrderedDict()
+_graphed_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,16 +140,72 @@ def render_geometry(cfg: JointOptConfig, obs: FruitObservations, T_ow: torch.Ten
     """Per frame: camera -> object pose T_oc [B, F, 4, 4], the ray-marching
     depths [B, F, M] around the object centre and the object's bounding
     radius [B, F]."""
-    cur_scale = torch.linalg.det(T_ow[:, :3, :3]) ** (-1.0 / 3.0)             # [B]
+    return _geometry(cfg, obs.T_wc, T_ow, cube_radius)
+
+
+def _geometry(cfg: JointOptConfig, T_wc: torch.Tensor, T_ow: torch.Tensor, cube_radius: float):
+    cur_scale = linalg.det(T_ow[:, :3, :3]) ** (-1.0 / 3.0)                    # [B]
     # the exact inverse of the drifted T_oc (not the closed-form Sim(3)
     # transpose): LM updates drift T_ow off the manifold and the reference
     # inverts the drifted matrix exactly
-    T_oc = T_ow[:, None] @ obs.T_wc
-    T_co = torch.linalg.inv(T_oc)
+    T_oc = T_ow[:, None] @ T_wc
+    T_co = linalg.inv(T_oc)
     depth_range = (cube_radius * cur_scale)[:, None].expand(T_co.shape[:2])
     d_lo = T_co[..., 2, 3] - 1.0 * depth_range
     d_hi = T_co[..., 2, 3] + 0.8 * depth_range
     return T_oc, _linspace(d_lo, d_hi, cfg.n_sample_on_ray), depth_range
+
+
+def _render_inputs(cfg: JointOptConfig, cube_radius: float, T_wc, ray_valid, frame_valid, T_ow):
+    """What the render term takes from the state: the fg flags of the rays
+    [R], the valid rays of valid frames [B, F, R] and `render_geometry`."""
+    is_fg = torch.arange(cfg.n_rays, device=T_ow.device) < cfg.n_fg_pix
+    return (is_fg, ray_valid & frame_valid[..., None],
+            *_geometry(cfg, T_wc, T_ow, cube_radius))
+
+
+def _render_normal_eq(cfg: JointOptConfig, res_d, jac_d, res_m, jac_m, ray_ok, i, points_w, T_ow):
+    """The render term's normal equations (depth + mask), `failed` (no valid
+    ray) and the surface points in the object frame, for the SDF term;
+    then the ray count and depth weights the objective reads."""
+    obs_count = ray_ok.sum((1, 2)).to(torch.float32)                           # [B]
+    failed = obs_count == 0.0
+    robust_active = i >= cfg.robust_iter
+    w2_d = _robust_w2(res_d, cfg.render_robust_th_m, robust_active[:, None, None])
+    H_d, b_d = _term_normal_eq(jac_d, res_d, w2_d, obs_count, cfg.w_depth)
+    H_m, b_m = _term_normal_eq(jac_m, res_m, torch.ones_like(res_m), obs_count, cfg.w_mask)
+    pts_o = points_w @ T_ow[:, :3, :3].transpose(1, 2) + T_ow[:, None, :3, 3]
+    return failed, H_d + H_m, b_d + b_m, pts_o, obs_count, w2_d
+
+
+def _sdf_normal_eq(cfg: JointOptConfig, H, b, res, jac, point_valid, i, latent):
+    """Undamped (H, b): the render term's plus the SDF term's, the code
+    regularizer and the configured pose dampings; then the point count and
+    SDF weights the objective reads."""
+    pose_dim = cfg.pose_dim
+    B, C = latent.shape
+    D = pose_dim + C
+    f32 = torch.float32
+    dev = latent.device
+    recon_count = point_valid.sum(-1).to(f32)
+    robust_active = i >= cfg.robust_iter
+    w2_r = _robust_w2(res, cfg.recon_robust_th_m, robust_active[:, None])
+    H_r, b_r = _term_normal_eq(jac, res, w2_r, recon_count, cfg.w_recon)
+
+    # ---------------- III. code regularizer ----------------
+    code_mask = (torch.arange(D, device=dev) >= pose_dim).to(f32)
+    H_c = torch.diag(cfg.w_codereg * code_mask)
+    b_c = torch.cat([torch.zeros(B, pose_dim, dtype=f32, device=dev), -cfg.w_codereg * latent], 1)
+
+    H = H + H_r + H_c
+    if cfg.scale_on:
+        H[:, pose_dim - 1, pose_dim - 1] += cfg.s_damp
+    if cfg.yaw_damp > 0.0:
+        H[:, 4, 4] += cfg.yaw_damp
+    if cfg.rot_damp > 0.0:
+        idx = torch.arange(3, 6, device=dev)
+        H[:, idx, idx] += cfg.rot_damp
+    return H, b + b_r + b_c, recon_count, w2_r
 
 
 def _assemble_normal_equations(
@@ -148,51 +223,22 @@ def _assemble_normal_equations(
     """Undamped (H [B, D, D], b [B, D]), `failed` [B] and the objective [B]."""
     if packs is None:
         packs = make_packs(params, spec, cfg)
-    pose_dim = cfg.pose_dim
-    B, C = latent.shape
-    D = pose_dim + C
-    f32 = torch.float32
-    dev = latent.device
 
     # ---------------- I. render term over all frames ----------------
-    rcfg = _render_config(cfg, spec)
-    is_fg = torch.arange(cfg.n_rays, device=dev) < cfg.n_fg_pix
-    T_oc, depths, depth_range = render_geometry(cfg, obs, T_ow, cube_radius)
+    is_fg, ray_mask, T_oc, depths, depth_range = _render_inputs(
+        cfg, cube_radius, obs.T_wc, obs.ray_valid, obs.frame_valid, T_ow)
     rr = render_residuals(
-        params, spec, latent, obs.rays, is_fg, obs.ray_valid & obs.frame_valid[..., None],
-        obs.depth_obs, T_oc, depths, depth_range, rcfg, lane_active, packs.render, packs.fwd,
+        params, spec, latent, obs.rays, is_fg, ray_mask, obs.depth_obs, T_oc, depths,
+        depth_range, _render_config(cfg, spec), lane_active, packs.render, packs.fwd,
     )
-
-    obs_count = rr.ray_ok.sum((1, 2)).to(f32)                                  # [B]
-    failed = obs_count == 0.0
-
-    robust_active = i >= cfg.robust_iter
-    w2_d = _robust_w2(rr.res_d, cfg.render_robust_th_m, robust_active[:, None, None])
-    H_d, b_d = _term_normal_eq(rr.jac_d, rr.res_d, w2_d, obs_count, cfg.w_depth)
-    H_m, b_m = _term_normal_eq(rr.jac_m, rr.res_m, torch.ones_like(rr.res_m), obs_count, cfg.w_mask)
+    failed, H, b, pts_o, obs_count, w2_d = _render_normal_eq(
+        cfg, rr.res_d, rr.jac_d, rr.res_m, rr.jac_m, rr.ray_ok, i, obs.points_w, T_ow)
 
     # ---------------- II. sdf reconstruction term ----------------
-    pts_o = obs.points_w @ T_ow[:, :3, :3].transpose(1, 2) + T_ow[:, None, :3, 3]
     rec = sdf_residuals(params, spec, latent, pts_o, obs.point_valid, cfg.scale_on, packs.sdf,
                         lane_active)
-    recon_count = obs.point_valid.sum(-1).to(f32)
-    w2_r = _robust_w2(rec.res, cfg.recon_robust_th_m, robust_active[:, None])
-    H_r, b_r = _term_normal_eq(rec.jac, rec.res, w2_r, recon_count, cfg.w_recon)
-
-    # ---------------- III. code regularizer ----------------
-    code_mask = (torch.arange(D, device=dev) >= pose_dim).to(f32)
-    H_c = torch.diag(cfg.w_codereg * code_mask)
-    b_c = torch.cat([torch.zeros(B, pose_dim, dtype=f32, device=dev), -cfg.w_codereg * latent], 1)
-
-    H = H_d + H_m + H_r + H_c
-    if cfg.scale_on:
-        H[:, pose_dim - 1, pose_dim - 1] += cfg.s_damp
-    if cfg.yaw_damp > 0.0:
-        H[:, 4, 4] += cfg.yaw_damp
-    if cfg.rot_damp > 0.0:
-        idx = torch.arange(3, 6, device=dev)
-        H[:, idx, idx] += cfg.rot_damp
-    b = b_d + b_m + b_r + b_c
+    H, b, recon_count, w2_r = _sdf_normal_eq(cfg, H, b, rec.res, rec.jac, obs.point_valid, i,
+                                             latent)
 
     count_safe = torch.clamp(obs_count, min=1.0)
     rcount_safe = torch.clamp(recon_count, min=1.0)
@@ -230,11 +276,16 @@ def normal_equations(params, spec, cfg, obs, latent, T_ow, i, cube_radius,
     return apply_lm_damping(H, cfg), b, failed
 
 
+# `lm_iteration`'s hook: another function in this one's place assembles the
+# iteration's (H, b) (see there)
+_NORMAL_EQUATIONS = normal_equations
+
+
 def _convergence(cfg: JointOptConfig, i, b, delta_T, delta_c, latent_new, T_new,
                  pose_known: bool, code_known: bool):
     """The gradient, code and pose convergence tests of an LM step [B]."""
-    scale_new = torch.linalg.det(T_new[:, :3, :3]) ** (-1.0 / 3.0)
-    delta_scale = torch.linalg.det(delta_T[:, :3, :3]) ** (1.0 / 3.0)
+    scale_new = linalg.det(T_new[:, :3, :3]) ** (-1.0 / 3.0)
+    delta_scale = linalg.det(delta_T[:, :3, :3]) ** (1.0 / 3.0)
     delta_tran = torch.linalg.norm(delta_T[:, :3, 3], dim=-1) * scale_new
     delta_rot = rotation_matrix_to_angle(delta_T[:, :3, :3] * scale_new[:, None, None]) * 180.0 / math.pi
 
@@ -264,22 +315,15 @@ def _manifold_step(cfg: JointOptConfig, delta: torch.Tensor, latent: torch.Tenso
     return delta_T, delta_c, latent + delta_c, delta_T @ T_ow
 
 
-def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
-                 pose_known: bool, packs: Optional[Packs] = None,
-                 code_known: bool = False) -> OptState:
-    """One LM iteration for every lane (frozen lanes are restored by
-    `_freeze_if_done`). `code_known` zeroes the code block of the step, so
-    only the pose moves (the pose polish)."""
+def _lm_step(cfg: JointOptConfig, H, b, failed, latent, T_ow, i, iter_count, converged,
+             pose_known: bool, code_known: bool) -> OptState:
+    """The new state of every lane from the damped normal equations (H, b)
+    at (latent, T_ow): the solve, the step on the manifold, the convergence
+    tests."""
     pose_dim = cfg.pose_dim
-    i = state.i
-    latent, T_ow = state.latent, state.T_ow
-    lane_active = ~(state.done | state.failed)
-
-    H, b, failed = normal_equations(params, spec, cfg, obs, latent, T_ow, i, cube_radius,
-                                    lane_active, packs)
-    # solve_ex: a singular H (a lane with nothing observed) gives inf/nan
-    # like jnp.linalg.solve instead of raising; such lanes are `failed`
-    delta = torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
+    # a singular H (a lane with nothing observed) gives inf/nan like
+    # jnp.linalg.solve instead of raising; such lanes are `failed`
+    delta = linalg.solve(H, b)
     if pose_known or code_known:
         delta = delta.clone()
     if pose_known:
@@ -299,11 +343,124 @@ def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
         latent=torch.where(keep[:, None], latent, latent_new),
         T_ow=torch.where(keep[:, None, None], T_ow, T_new),
         i=torch.where(keep, i, i + 1),
-        iter_count=torch.where(keep, state.iter_count, i + 1),
+        iter_count=torch.where(keep, iter_count, i + 1),
         done=done | keep,
         failed=keep,
-        converged=torch.where(keep, state.converged, conv),
+        converged=torch.where(keep, converged, conv),
     )
+
+
+def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
+                 pose_known: bool, packs: Optional[Packs] = None,
+                 code_known: bool = False) -> OptState:
+    """One LM iteration for every lane (frozen lanes are restored by
+    `_freeze_if_done`). `code_known` zeroes the code block of the step, so
+    only the pose moves (the pose polish).
+
+    The iteration is `render_residuals` and `sdf_residuals`, each called
+    once, and three segments of its own code around them: `pre` (the render
+    geometry), `mid` (the render term's normal equations, the point
+    transform) and `post` (the SDF term's normal equations, the damping,
+    the solve, the step, the convergence tests). On the card the segments
+    replay as CUDA graphs where `_iteration_graphs` has them, and the state
+    returned is then a copy of the graph's output; elsewhere they run as
+    plain calls. While tracing, the span `lm.iteration` gets `graph` 1 where
+    they replayed, else 0.
+
+    The one hook: a function put in place of this module's
+    `normal_equations` (the benchmark's control lowers the precision of its
+    algebra there) assembles (H, b) for the iteration, which then runs
+    eagerly."""
+    if normal_equations is not _NORMAL_EQUATIONS:
+        trace.tag("lm.iteration", graph=0)
+        H, b, failed = normal_equations(params, spec, cfg, obs, state.latent, state.T_ow, state.i,
+                                        cube_radius, ~(state.done | state.failed), packs)
+        return _lm_step(cfg, H, b, failed, state.latent, state.T_ow, state.i, state.iter_count,
+                        state.converged, pose_known, code_known)
+    if packs is None:
+        packs = make_packs(params, spec, cfg)
+    latent, T_ow, i = state.latent, state.T_ow, state.i
+
+    def pre(T_wc, ray_valid, frame_valid, T_ow, done, failed):
+        return (*_render_inputs(cfg, cube_radius, T_wc, ray_valid, frame_valid, T_ow),
+                ~(done | failed))
+
+    def mid(*t):
+        return _render_normal_eq(cfg, *t)[:4]
+
+    def post(H, b, failed, res, jac, point_valid, latent, T_ow, i, iter_count, converged):
+        H, b, _, _ = _sdf_normal_eq(cfg, H, b, res, jac, point_valid, i, latent)
+        return _lm_step(cfg, apply_lm_damping(H, cfg), b, failed, latent, T_ow, i, iter_count,
+                        converged, pose_known, code_known)
+
+    graphs = _iteration_graphs(cfg, obs, state, cube_radius, pose_known, code_known)
+    trace.tag("lm.iteration", graph=int(graphs is not None))
+    run = graphs.run if graphs is not None else (lambda _name, fn, *a: fn(*a))
+    try:
+        is_fg, ray_mask, T_oc, depths, depth_range, lane_active = run(
+            "pre", pre, obs.T_wc, obs.ray_valid, obs.frame_valid, T_ow, state.done, state.failed)
+        rr = render_residuals(
+            params, spec, latent, obs.rays, is_fg, ray_mask, obs.depth_obs, T_oc, depths,
+            depth_range, _render_config(cfg, spec), lane_active, packs.render, packs.fwd,
+        )
+        failed, H, b, pts_o = run("mid", mid, rr.res_d, rr.jac_d, rr.res_m, rr.jac_m, rr.ray_ok,
+                                  i, obs.points_w, T_ow)
+        rec = sdf_residuals(params, spec, latent, pts_o, obs.point_valid, cfg.scale_on,
+                            packs.sdf, lane_active)
+        new = run("post", post, H, b, failed, rec.res, rec.jac, obs.point_valid, latent, T_ow, i,
+                  state.iter_count, state.converged)
+    finally:
+        if graphs is not None:
+            graphs.release()
+    # a later replay overwrites the graph's outputs: hand out copies
+    return OptState(*(t.clone() for t in new)) if graphs is not None else new
+
+
+def _iteration_graphs(cfg, obs, state: OptState, cube_radius: float, pose_known: bool,
+                      code_known: bool) -> Optional[IterationGraphs]:
+    """The graphs of this iteration's key, held for the caller, or None
+    where the iteration runs eagerly: off the card, `CUDA_GRAPHS` off, a
+    shard thread of the fruit mesh (whose threads take host turns), inside
+    a capture of the caller's, the first call of a key, or another thread
+    using the key's graphs. A key's first iteration is its warm-up: it runs
+    eagerly, so the lazy set-up of the libraries and kernels it calls
+    happens outside a capture; the second captures. The key is all that
+    the captured code fixes: the config, the radius, the flags, every
+    input's shape, strides and type, the device and the stream."""
+    dev = state.latent.device
+    if (not CUDA_GRAPHS or dev.type != "cuda" or on_shard_thread()
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    key = (cfg, float(cube_radius), bool(pose_known), bool(code_known), dev,
+           torch.cuda.current_stream(dev).cuda_stream,
+           tuple((t.shape, t.stride(), t.dtype) for t in (*obs, *state)))
+    with _graphed_lock:
+        if key not in _graphed:
+            _graphed[key] = None
+            _drop_oldest(dev)
+            return None
+        _graphed.move_to_end(key)
+        graphs = _graphed[key]
+        if graphs is None:
+            graphs = _graphed[key] = IterationGraphs(dev)
+            trace.count(globals(), "graph_captures")
+    return graphs if graphs.acquire() else None
+
+
+def _drop_oldest(dev: torch.device) -> None:
+    """Keys beyond MAX_GRAPHED, least recently used first (under
+    `_graphed_lock`); graphs in use by another thread stay. Work of a dropped
+    graph may still be queued, so the device finishes it first."""
+    for key in list(_graphed):
+        if len(_graphed) <= MAX_GRAPHED:
+            return
+        graphs = _graphed[key]
+        if graphs is None:
+            del _graphed[key]
+        elif graphs.acquire():
+            torch.cuda.synchronize(dev)
+            del _graphed[key]
+            graphs.release()
 
 
 def _where_lanes(mask: torch.Tensor, a, b):
@@ -394,7 +551,7 @@ def lm_iteration_tr(params, spec, cfg, obs, ts: TrState, cube_radius: float,
     nu = torch.where(crossed & accept, ts.nu, nu)
 
     Hd = apply_lm_damping(H_use, cfg, lam)
-    delta = torch.linalg.solve_ex(Hd, b_use[..., None])[0][..., 0]
+    delta = linalg.solve(Hd, b_use)
     if pose_known:
         # zero the pose step before pricing it: pred must value the step taken
         delta = delta.clone()
@@ -779,7 +936,7 @@ def shape_opt_deepsdf_batched(
         H = H + cfg.w_codereg * eye
         b = b - cfg.w_codereg * latent
         H = apply_lm_damping(H, cfg)
-        delta_c = torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
+        delta_c = linalg.solve(H, b)
         lat_new = latent + delta_c
         conv = (((b.abs().max(-1).values < cfg.epsilon_g)
                  | ((delta_c / (lat_new + 1e-12)).abs().max(-1).values < cfg.epsilon_c))

@@ -163,6 +163,12 @@ def pad_to_multiple(
 _shard = threading.local()   # `turn`: the host turn of the shard thread running here
 
 
+def on_shard_thread() -> bool:
+    """Whether this thread is a shard thread of the fruit mesh, which takes
+    host turns."""
+    return getattr(_shard, "turn", None) is not None
+
+
 def host_read(t: torch.Tensor):
     """The value of the one-element t on the host: on a shard thread the
     host turn goes to the other shards while this one waits for its device

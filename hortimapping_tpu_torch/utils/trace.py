@@ -30,11 +30,13 @@ that reads each:
   `CompletionServer._serve`; `serve.solve` (batch): its solve.
   `serve.host_ms_per_batch` reads the one less the other.
 * `lm.solve` (phase: coarse, fine, main, polish or rescue; width): one LM
-  loop. `lm.iteration` (active: the lanes neither done nor failed on entry):
+  loop. `lm.iteration` (active: the lanes neither done nor failed on entry;
+  graph: 1 where the iteration's own code replayed as CUDA graphs, else 0):
   an iteration up to the return of its flag read. `lm.readback`: the flag
   read, the host's wait for the device. `lm.enqueue_ms_per_iter`,
-  `lm.readback_ms_per_iter` and `lm.active_lane_share` read the iterations
-  of every phase but the rescue.
+  `lm.readback_ms_per_iter`, `lm.active_lane_share` and `lm.graph_share`
+  read the iterations of every phase but the rescue. The host counter
+  `graph_captures` of `optim/lm.py` counts the iterations' keys captured.
 * `lm.rescue`: the selective rescue of `warmstart_solve`, whose loops take
   phase `rescue`.
 * `mesh.host` (fruits): `MeshExtractor.meshes_from_grids`.
@@ -188,6 +190,17 @@ def record(name: str, t0_ns: int, t1_ns: int, group: Optional[int] = None, **att
     parent = stack[-1].sid if stack else None
     _ring.append(Span(name, int(t0_ns), int(t1_ns), next(_ids), parent, group,
                       threading.get_ident(), attrs))
+
+
+def tag(name: str, **attrs) -> None:
+    """Attributes set on the innermost span `name` open on this thread, by
+    code that runs inside it; only while tracing is on."""
+    if not enabled():
+        return
+    for s in reversed(_stack()):
+        if s.name == name:
+            s.attrs.update(attrs)
+            return
 
 
 def inside(name: str) -> bool:

@@ -681,3 +681,179 @@ def test_kernels_launched_from_threads_match_alone(cuda):
     assert (mlp_kernels.launches, render_kernel.launches, render_kernel.launches_band,
             render_kernel.launches_sum, mlp_kernels.launches_fwd,
             mlp_kernels.launches_shared_latent) == (reps,) * 6
+
+
+# ---------------------------------------------------------------- LM loop: solve kernel, graphs
+
+def _lm_case(case, cuda, n=32, seed=3):
+    """(params, spec, cfg, obs, latent0, T_ow0) of a served batch of `n`
+    synthetic peppers under one of the benchmark's configurations (`bup20`:
+    `configs/wild_pepper_tpu.yaml`; `cka`: `configs/cka_pepper_tpu.yaml`;
+    `cka_se3`: the same in SE(3), D = 38; `small_8`: the wild config with the
+    8-code decoder widened to 128, D = 15), from the table-mean code and a
+    pose init 1 cm off."""
+    import dataclasses
+    import os
+
+    from hortimapping_tpu_torch.config import JointOptConfig, load_config
+    from hortimapping_tpu_torch.models.workspace import load_latent_vectors
+    from hortimapping_tpu_torch.optim.state import stack_observations
+    from hortimapping_tpu_torch.tools.synthetic import SyntheticCategory, make_scene
+    from torch_port_common import load_npz_params, widen_decoder_np
+
+    yaml = "cka_pepper_tpu.yaml" if case.startswith("cka") else "wild_pepper_tpu.yaml"
+    cfg = JointOptConfig.from_dict(load_config(os.path.join(ASSETS, "..", "configs", yaml)))
+    if case == "cka_se3":
+        cfg = dataclasses.replace(cfg, scale_on=False)
+    if case == "small_8":
+        params_np, fields, table, base_radius = load_npz_params("synthetic_small_8")
+        params_np, fields = widen_decoder_np(params_np, fields, 128)
+        spec = DecoderSpec(**fields)
+        params = params_from_jax(params_np, cuda)
+        mean = table.mean(0)
+    else:
+        params, spec = _decoder("synthetic_pepper_32", 0, cuda)
+        mean = load_latent_vectors(f"{ASSETS}/synthetic_pepper_32", device="cpu").mean(0).numpy()
+        base_radius = 0.06
+    cat = SyntheticCategory(spec=spec, base_radius=base_radius)
+    rng = np.random.default_rng(seed)
+    obs_list, T_list = [], []
+    for b in range(n):
+        code = (rng.normal(size=spec.code_length) * 0.3).astype(np.float32)
+        T_wo = np.eye(4, dtype=np.float32)
+        T_wo[:3, 3] = rng.normal(size=3) * 0.1
+        o, _ = make_scene(cat, code, T_wo, n_frames=cfg.n_frame, n_fg=cfg.n_fg_pix,
+                          n_bg=cfg.n_bg_pix, n_points=cfg.recon_n_pts, seed=seed * 100 + b)
+        obs_list.append(o)
+        T0 = np.linalg.inv(T_wo).astype(np.float32)
+        T0[:3, 3] += rng.normal(size=3).astype(np.float32) * 0.01
+        T_list.append(T0)
+    lat0 = torch.as_tensor(np.tile(mean[None], (n, 1)).astype(np.float32)).to(cuda)
+    return (params, spec, cfg, stack_observations(obs_list, cuda), lat0,
+            torch.as_tensor(np.stack(T_list)).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,D", [("bup20", 39), ("cka", 39), ("cka_se3", 38), ("small_8", 15)])
+def test_solve_kernel_matches_solve_ex(cuda, case, D):
+    """The solve kernel on the damped normal equations of real batches (B =
+    32, three successive iterates), one launch a solve: within 1e-5 of the
+    float64 solution, as a fraction of each lane's largest entry, and within
+    1e-5 of `torch.linalg.solve_ex` beyond solve_ex's own distance to that
+    solution (on bup20's H, condition ~2e4, solve_ex itself is up to ~3e-5
+    from it; the kernel equilibrates first). A lane whose H is singular
+    (nothing observed: the pose block zero) comes out non-finite in both,
+    the others finite."""
+    from hortimapping_tpu_torch.ops import linalg
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.optim.state import init_state
+
+    params, spec, cfg, obs, lat0, T0 = _lm_case(case, cuda)
+    packs = lm.make_packs(params, spec, cfg)
+    s = init_state(lat0, T0)
+    def rel(a, ref):
+        return (a.double() - ref).abs().max(-1).values / ref.abs().max(-1).values
+
+    for _ in range(3):
+        H, b, _ = lm.normal_equations(params, spec, cfg, obs, s.latent, s.T_ow, s.i, 0.08, None,
+                                      packs)
+        assert H.shape[-1] == D
+        before = linalg.launches
+        got = linalg.solve(H, b)
+        want = torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
+        exact = torch.linalg.solve(H.double(), b.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        assert linalg.launches == before + 1
+        assert bool(torch.isfinite(want).all())
+        err, err_ex, gap = rel(got, exact), rel(want, exact), rel(got, want.double())
+        print(f"solve kernel, {case} (D = {D}): largest lane error {float(err.max()):.3g}, "
+              f"solve_ex's {float(err_ex.max()):.3g}, gap {float(gap.max()):.3g}")
+        assert float(err.max()) <= 1e-5
+        assert bool((gap <= 1e-5 + err_ex).all())
+        s = lm._freeze_if_done(s, lm.lm_iteration(params, spec, cfg, obs, s, 0.08, False, packs))
+    H_sing = H.clone()
+    H_sing[0, :cfg.pose_dim] = 0.0
+    H_sing[0, :, :cfg.pose_dim] = 0.0
+    got = linalg.solve(H_sing, b)
+    want = torch.linalg.solve_ex(H_sing, b[..., None])[0][..., 0]
+    fin_got, fin_want = torch.isfinite(got).all(-1), torch.isfinite(want).all(-1)
+    assert torch.equal(fin_got, fin_want) and not bool(fin_got[0]) and bool(fin_got[1:].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bup20", "cka"])
+def test_lm_iteration_captures_inside_a_cuda_graph(cuda, case, monkeypatch):
+    """One whole `lm_iteration` at B = 32 (render and SDF terms included)
+    captured by `torch.cuda.graph` in its strictest mode: nothing in it
+    waits for the device. Its replay equals the eager iteration bit for
+    bit."""
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.optim.state import init_state
+
+    params, spec, cfg, obs, lat0, T0 = _lm_case(case, cuda)
+    packs = lm.make_packs(params, spec, cfg)
+    s = init_state(lat0, T0)
+    monkeypatch.setattr(lm, "CUDA_GRAPHS", False)
+    want = lm.lm_iteration(params, spec, cfg, obs, s, 0.08, False, packs)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = lm.lm_iteration(params, spec, cfg, obs, s, 0.08, False, packs)
+    g.replay()
+    torch.cuda.synchronize()
+    for name, a, w in zip(s._fields, got, want):
+        assert torch.equal(a, w), name
+
+
+def _launch_counts():
+    from hortimapping_tpu_torch.ops import linalg
+
+    return (mlp_kernels.launches, render_kernel.launches, render_kernel.launches_band,
+            render_kernel.launches_sum, linalg.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bup20", "cka"])
+def test_graphs_replay_the_eager_solve_bit_for_bit(cuda, case, monkeypatch):
+    """A whole solve at B = 32 (bup20: coarse-to-fine, 8 + 2 iterations;
+    cka: 50 iterations) with the iteration's graphs on, twice (the first
+    captures every key at its second call, the second replays throughout),
+    equals the eager solve lane by lane bit for bit; the kernels' launch
+    counts and the band rows B2 read are the same, and the traced
+    iterations say which replayed."""
+    from hortimapping_tpu_torch.optim import lm
+    from hortimapping_tpu_torch.utils import trace
+
+    params, spec, cfg, obs, lat0, T0 = _lm_case(case, cuda)
+    packs = lm.make_packs(params, spec, cfg)
+    solver = lm.coarse_to_fine_joint_opt if cfg.coarse_to_fine else lm.shape_pose_joint_opt_batched
+
+    def run(graphs):
+        monkeypatch.setattr(lm, "CUDA_GRAPHS", graphs)
+        before, caps = _launch_counts(), lm.graph_captures
+        trace.force(True)
+        try:
+            res = solver(params, spec, cfg, obs, lat0, T0, 0.08, False, cuda, packs)
+            counters = trace.counters()
+            flags = [sp.attrs["graph"] for sp in trace.spans() if sp.name == "lm.iteration"]
+        finally:
+            trace.force(False)
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        return res, launched, counters["render.band_rows"], flags, lm.graph_captures - caps
+
+    lm._graphed.clear()
+    want, launched, rows, flags, caps = run(False)
+    assert not any(flags) and caps == 0 and launched[-1] == len(flags)
+    for rep in range(2):
+        got, launched_g, rows_g, flags_g, caps_g = run(True)
+        for name, a, w in zip(want._fields, got, want):
+            assert torch.equal(a, w), (rep, name)
+        assert launched_g == launched and rows_g == rows, (rep, launched_g, launched)
+        assert len(flags_g) == len(flags)
+        if rep == 0:
+            assert caps_g == (2 if cfg.coarse_to_fine else 1)
+            assert flags_g[0] == 0 and sum(flags_g) == len(flags_g) - caps_g
+        else:
+            assert caps_g == 0 and all(flags_g)
+    trace.force(None)
+    lm._graphed.clear()
