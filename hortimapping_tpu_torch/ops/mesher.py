@@ -83,10 +83,14 @@ class MeshExtractor:
 
     def decode_grids(self, latents: torch.Tensor) -> torch.Tensor:
         """[B, C] codes -> [B, D^3] f16 SDF grids on the device, decoded
-        `decode_chunk` fruits at a time."""
+        `decode_chunk` fruits at a time (span `mesh.decode` while tracing is
+        on: its enqueue, with the codes, the grid's points and the chunks)."""
         latents = latents.to(self.device)
-        return torch.cat([self._decode(latents[lo:lo + self.decode_chunk]).to(torch.float16)
-                          for lo in range(0, latents.shape[0], self.decode_chunk)])
+        n = latents.shape[0]
+        with trace.span("mesh.decode", codes=n, points=self.voxel_points.shape[0],
+                        chunks=-(-n // self.decode_chunk)):
+            return torch.cat([self._decode(latents[lo:lo + self.decode_chunk]).to(torch.float16)
+                              for lo in range(0, n, self.decode_chunk)])
 
     def decode_sdf_grid(self, latent: torch.Tensor) -> np.ndarray:
         """(D, D, D) SDF values of one code, on the host."""
@@ -126,14 +130,18 @@ class MeshExtractor:
 
     def meshes_from_grids(self, grids: torch.Tensor) -> List[TriangleMesh]:
         """Host iso-surfacing of grids from `decode_grids` (span `mesh.host`
-        while tracing is on)."""
+        while tracing is on, with the threads that mesh; inside it span
+        `mesh.readback`, the grids' copy to the host)."""
         d = self.voxels_dim
-        with trace.span("mesh.host", fruits=grids.shape[0]):
-            host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
-            # threads pay only from 64^3 up: the native call releases the GIL,
-            # but at smaller grids the per-fruit numpy work around it dominates
-            if host.shape[0] > 4 and d >= 64:
-                with ThreadPoolExecutor(max_workers=min(8, host.shape[0])) as ex:
+        n = grids.shape[0]
+        # threads pay only from 64^3 up: the native call releases the GIL,
+        # but at smaller grids the per-fruit numpy work around it dominates
+        threads = min(8, n) if n > 4 and d >= 64 else 1
+        with trace.span("mesh.host", fruits=n, threads=threads):
+            with trace.span("mesh.readback"):
+                host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
+            if threads > 1:
+                with ThreadPoolExecutor(max_workers=threads) as ex:
                     return list(ex.map(self._grid_to_mesh, host))
             return [self._grid_to_mesh(g) for g in host]
 

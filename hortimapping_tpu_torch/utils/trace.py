@@ -39,7 +39,13 @@ that reads each:
   `graph_captures` of `optim/lm.py` counts the iterations' keys captured.
 * `lm.rescue`: the selective rescue of `warmstart_solve`, whose loops take
   phase `rescue`.
-* `mesh.host` (fruits): `MeshExtractor.meshes_from_grids`.
+* `mesh.decode` (codes, points: the grid's, chunks: the decode's launches
+  of B4 on the card): `MeshExtractor.decode_grids`, its enqueue.
+* `mesh.host` (fruits, threads: 1 where the fruits are meshed in turn):
+  `MeshExtractor.meshes_from_grids`; `mesh.readback`: inside it, the grids'
+  copy to the host, the wait for the decode included.
+  `mesh.readback_ms_per_fruit` reads the one, `mesh.iso_ms_per_fruit` the
+  other less it.
 * `render.band_rows`, a device counter: the band rows of every fused render
   call on the card; `render.b2_band_roofline`.
 """
