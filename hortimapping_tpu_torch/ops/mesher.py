@@ -17,7 +17,7 @@ to the host in one copy.
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -61,7 +61,7 @@ class MeshExtractor:
         self.spec = spec
         self.voxels_dim = voxels_dim
         self.cube_radius = cube_radius
-        self._iso_surface = native.marching_cubes if method == "mc" else native.marching_tetrahedra
+        self.method = method
         self.voxel_points = torch.as_tensor(create_voxel_grid(voxels_dim)).to(self.device) * cube_radius
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
@@ -98,7 +98,7 @@ class MeshExtractor:
         return self.decode_grids(latent.reshape(1, -1))[0].cpu().numpy().reshape(d, d, d)
 
     def extract_mesh_from_code(self, latent: torch.Tensor) -> TriangleMesh:
-        return self._grid_to_mesh(self.decode_sdf_grid(latent))
+        return self.extract_batch(latent.reshape(1, -1))[0]
 
     def decode_grids_async(self, latents: torch.Tensor) -> torch.Tensor:
         """`decode_grids` under the JAX package's name for the serving path,
@@ -129,21 +129,21 @@ class MeshExtractor:
         return head, grids.reshape(-1, d, d, d)
 
     def meshes_from_grids(self, grids: torch.Tensor) -> List[TriangleMesh]:
-        """Host iso-surfacing of grids from `decode_grids` (span `mesh.host`
-        while tracing is on, with the threads that mesh; inside it span
-        `mesh.readback`, the grids' copy to the host)."""
+        """Host iso-surfacing of grids from `decode_grids`: the whole batch
+        in one native call on min(fruits, the process's CPUs) threads, the
+        f16 grids widened there (span `mesh.host` while tracing is on, with
+        the threads that meshed; inside it span `mesh.readback`, the grids'
+        copy to the host). The meshes are `_grid_to_mesh`'s, bit for bit."""
         d = self.voxels_dim
         n = grids.shape[0]
-        # threads pay only from 64^3 up: the native call releases the GIL,
-        # but at smaller grids the per-fruit numpy work around it dominates
-        threads = min(8, n) if n > 4 and d >= 64 else 1
-        with trace.span("mesh.host", fruits=n, threads=threads):
+        with trace.span("mesh.host", fruits=n) as sp:
             with trace.span("mesh.readback"):
                 host = grids.detach().cpu().numpy().reshape(-1, d, d, d)
-            if threads > 1:
-                with ThreadPoolExecutor(max_workers=threads) as ex:
-                    return list(ex.map(self._grid_to_mesh, host))
-            return [self._grid_to_mesh(g) for g in host]
+            pairs, threads = native.iso_surface_batch(
+                host, 0.0, 2.0 / (d - 1), 1.0, self.cube_radius, self.method,
+                min(n, len(os.sched_getaffinity(0))))
+            sp.set(threads=threads)
+        return [TriangleMesh(v, f) for v, f in pairs]
 
     def extract_batch(self, latents: torch.Tensor) -> List[TriangleMesh]:
         return self.meshes_from_grids(self.decode_grids(latents))
@@ -167,7 +167,10 @@ class MeshExtractor:
         return out
 
     def _grid_to_mesh(self, grid: np.ndarray) -> TriangleMesh:
+        """One (D, D, D) host grid's mesh, scaled in numpy: the tests'
+        oracle for `meshes_from_grids`."""
         voxel_size = 2.0 / (self.voxels_dim - 1)
-        verts, faces = self._iso_surface(grid, iso=0.0, spacing=voxel_size)
+        iso_surface = native.marching_cubes if self.method == "mc" else native.marching_tetrahedra
+        verts, faces = iso_surface(grid, iso=0.0, spacing=voxel_size)
         verts = (verts - 1.0) * self.cube_radius
         return TriangleMesh(verts.astype(np.float32), faces.astype(np.int32))

@@ -41,7 +41,8 @@ that reads each:
   phase `rescue`.
 * `mesh.decode` (codes, points: the grid's, chunks: the decode's launches
   of B4 on the card): `MeshExtractor.decode_grids`, its enqueue.
-* `mesh.host` (fruits, threads: 1 where the fruits are meshed in turn):
+* `mesh.host` (fruits, threads: the native pool's threads that meshed the
+  batch, one a fruit up to the process's CPUs; 1 for one fruit):
   `MeshExtractor.meshes_from_grids`; `mesh.readback`: inside it, the grids'
   copy to the host, the wait for the decode included.
   `mesh.readback_ms_per_fruit` reads the one, `mesh.iso_ms_per_fruit` the

@@ -225,9 +225,11 @@ def _grids(params, d, n, seed=4):
     return m, m.decode_grids(lat)
 
 
-def test_threaded_meshing_equals_serial(decoder):
-    """At d = 64 and 6 fruits `meshes_from_grids` meshes on 6 threads; its
-    meshes are the serial ones, vertex for vertex and face for face."""
+def test_threaded_meshing_equals_serial(decoder, monkeypatch):
+    """At d = 64 and 6 fruits, on a process allowed 6 CPUs,
+    `meshes_from_grids` meshes on 6 threads; its meshes are the serial
+    ones, vertex for vertex and face for face."""
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(6)))
     m, grids = _grids(decoder[0], 64, 6)
     got = m.meshes_from_grids(grids)
     want = [m._grid_to_mesh(g) for g in grids.cpu().numpy().reshape(-1, 64, 64, 64)]
@@ -237,10 +239,12 @@ def test_threaded_meshing_equals_serial(decoder):
 
 
 @pytest.mark.parametrize("d,n,threads", [(16, 5, 1), (64, 4, 1), (64, 6, 6)])
-def test_meshing_spans(decoder, d, n, threads):
+def test_meshing_spans(decoder, monkeypatch, d, n, threads):
     """While tracing is on: `mesh.decode` with the codes, the grid's points
-    and the chunks, `mesh.host` with its threads, and `mesh.readback` inside
+    and the chunks, `mesh.host` with its threads (on a process allowed
+    `threads` CPUs, n >= threads: that many), and `mesh.readback` inside
     it; while it is off, nothing is recorded."""
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(threads)))
     params = decoder[0]
     trace.force(True)
     try:
