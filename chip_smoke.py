@@ -19,7 +19,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      (ROADMAP.md "Rules") plus a small f32 case, each bit-equal across two
      launches; B1 in the lanes form the LM launches (two frozen lanes),
      beside one flat launch of the same rows; B2's time split by launch with
-     its band rows and their fill of 64-row chunks; then the LM solve
+     its band rows and their fill of 64-row chunks; the dense render route
+     (`fused_render: false`) at bench fine vs plain; then the LM solve
      kernel on the damped normal equations of the batch (B = 32: the bench
      config and the greenhouse config, D = 39, and the greenhouse config in
      SE(3), D = 38; three successive iterates each) vs float64 and
@@ -123,17 +124,7 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      (1 x 2000 rows), B2 (B=1), B3 and B4 (one code) against their plain
      versions on the run's own observations; its functional gate (plain
      versions, mean CD over the fruits valid in both within 0.3 mm);
- 16. the compacted render paths (`fused_render: false`, `jac_cap: 0`,
-     `fwd_cap: 0`, `fwd_bf16` off and on) at the trust-region shape (B=8
-     F=5 R=300 M=20) and the bench fine shape (B=32 F=10 R=240 M=22): the
-     render residuals and the LM normal equations held to the same route
-     with plain versions, and to the dense unfused route wherever the math
-     is the dense route's (the fused-kernel gate), the band's and the
-     forward's overflow, a second run bit-equal, B1 on the compacted band
-     rows and B3 on the forward rows against their plain versions, ms per
-     LM iteration of the dense unfused, compacted and fused routes; the
-     bench path and a B=8 solve on the compacted route (B2 never launched),
-     the solve within 0.3 mm of its plain versions;
+ 16. (retired with the compacted render route);
  17. fruit-parallel execution over a mesh (all cards where the host has
      more than one, else 4 shards of cuda:0, each a host thread and a CUDA
      stream of its own): the bench batch with unit-scale bf16 retrieval and
@@ -161,8 +152,7 @@ Phases (one line each; any failure ends the run with a non-zero exit):
  19. one JSON line of kernel records (the five kernels at their greenhouse
      shapes, then each kernel on the greenhouse-from-disk runs and the
      served batches, B4 on the trained decoder, the four at the interactive
-     path's shapes, B1 and B3 on the compacted rows, B1 and B2 at the
-     shard width), then the JSON result line.
+     path's shapes, B1 and B2 at the shard width), then the JSON result line.
 With --profile FILE, one bench batch, one greenhouse batch, one wild run, one
 challenge run, one lab multi-frame run, one greenhouse-from-disk run, one
 served burst, one training epoch and one 4-shard bench batch are traced by
@@ -518,6 +508,42 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
           f" MB (room for every sample)", flush=True)
     return dict(err=max(float((g - w).abs().max()) for g, w in zip(got, want)), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, split=split)
+
+
+def check_dense_route(phase, params, spec, obs, cfg, latent, T_ow, dev, smi):
+    """The render term's dense route (`fused_render: false`: B1 on the dense
+    rows, no B2): the LM normal equations and one LM step against
+    `plain_versions()` (RENDER_TOL f32), launches, ms per LM iteration."""
+    import torch
+
+    from hortimapping_tpu_torch.optim import lm
+
+    dense, s0 = dataclasses.replace(cfg, fused_render=False), lm.init_state(latent, T_ow)
+
+    def run():
+        H, b, _ = lm.normal_equations(params, spec, dense, obs, latent, T_ow, s0.i, CUBE_RADIUS)
+        s1 = lm.lm_iteration(params, spec, dense, obs, s0, CUBE_RADIUS, False)
+        return H, b, torch.cat([s1.latent - latent, (s1.T_ow - T_ow).flatten(1)], 1)[None]
+
+    counts = LaunchCounts()
+    got = run()
+    counts.read()
+    with plain_versions():
+        want = run()
+    # per lane for H and b, over the batch for the step
+    g = {k: max(float((x - y).norm() / y.norm().clamp_min(1e-30)) for x, y in zip(a, b))
+         for k, a, b in zip(("relH", "relb", "step"), got, want)}
+    lim = dict(relH=RENDER_TOL["f32"]["relH"], relb=RENDER_TOL["f32"]["relb"],
+               step=RENDER_TOL["f32"]["relb"])
+    assert all(g[k] <= lim[k] for k in lim) and counts.n["fused_render"] == 0 and min(
+        counts.n["mlp_fwd_grad"], counts.n["lm_solve"]) > 0, (phase, g, lim, counts.n)
+    ms = {}
+    for k, c in (("dense", dense), ("fused", dataclasses.replace(cfg, fused_render=True))):
+        pk = lm.make_packs(params, spec, c)
+        ms[k] = cuda_ms(lambda: lm.lm_iteration(params, spec, c, obs, s0, CUBE_RADIUS, False, pk), 3)
+    print(f"dense render route vs plain, {phase}: " + ", ".join(f"{k} {v:.3g}" for k, v in g.items())
+          + f" (gates {lim}) | launches {counts} | ms per LM iteration dense {ms['dense']:.3f}, "
+          f"fused {ms['fused']:.3f} | {smi}", flush=True)
 
 
 def check_solve(label, params, spec, cfg, obs, latent, T_ow, dev, iterates=3):
@@ -2138,272 +2164,6 @@ def interactive_path(params, spec, table, pk16, pk32, smi, dev, n_fruits=INTERAC
                 launches=dict(counts.n))
 
 
-def check_rows(label, name, pk, x, kept):
-    """B1 ("mlp_fwd_grad") or B3 ("mlp_fwd") against its plain version on
-    the rows x [N, C+3] the compacted route launches it on (fill rows
-    included); its bound over the `kept` rows this run's data needs. f32:
-    max |d sdf| <= 1e-5 (B1: |d grad| <= 1e-4 of its largest); B3 in bf16:
-    the median and p99 gates of B3_BF16_GATE."""
-    import torch
-
-    from hortimapping_tpu_torch.ops import mlp_kernels
-
-    rows = x.shape[0]
-    if name == "mlp_fwd_grad":
-        run = lambda: mlp_kernels.mlp_sdf_and_input_grad(pk, x)
-        plain = lambda: mlp_kernels.mlp_sdf_and_input_grad_plain(pk, x)
-        (s_k, g_k), (s_p, g_p) = run(), plain()
-        torch.cuda.synchronize()
-        err_s, err_g = float((s_k - s_p).abs().max()), float((g_k - g_p).abs().max())
-        g_scale = float(g_p.abs().max())
-        assert err_s <= 1e-5 and err_g <= 1e-4 * g_scale, (label, err_s, err_g, g_scale)
-        err, gate_s = max(err_s, err_g), (f"max|d sdf| {err_s:.3g}, max|d grad| {err_g:.3g} "
-                                          f"(of {g_scale:.3g})")
-        fwd, bwd = chain_macs(pk)
-        flops = 2.0 * (fwd + bwd) * kept
-        nbytes = kept * (2 * pk.in_dim + 1) * 4 + weight_bytes(pk)
-        bound_ms, bound_by = bound(nbytes, flops, H100_F32_FLOPS)
-    else:
-        run = lambda: mlp_kernels.mlp_sdf(pk, x)
-        plain = lambda: mlp_kernels.mlp_sdf_plain(pk, x)
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        d = (got - want).abs()
-        err, med = float(d.max()), float(d.median())
-        p99 = float(torch.quantile(d[:1 << 24], 0.99))
-        if pk.bf16:
-            assert med <= B3_BF16_GATE["med"] and p99 <= B3_BF16_GATE["p99"], (label, med, p99)
-        else:
-            assert err <= 1e-5, (label, err)
-        gate_s = f"|d sdf| median {med:.3g} p99 {p99:.3g} max {err:.3g}"
-        flops, bound_ms, bound_by = fwd_bound(pk, kept, kept * pk.in_dim * 4, kept * 4)
-    ms = cuda_ms(run, 5)
-    plain_ms = cuda_ms(plain, 2)
-    kernel = "B1 mlp_fwd_grad" if name == "mlp_fwd_grad" else "B3 mlp_fwd"
-    print(f"{kernel} vs plain, {label}: {rows} rows ({kept} kept) "
-          f"{'bf16' if pk.bf16 else 'f32'} | {gate_s} | kernel {ms:.3f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s over the kept rows), plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}) | no single PyTorch call", flush=True)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-
-
-@contextlib.contextmanager
-def launched_rows(seen: dict):
-    """Within the block, the render route's B1 and B3 calls record their
-    weights and rows into `seen` (by kernel name)."""
-    from hortimapping_tpu_torch.ops import mlp_kernels
-
-    fwd, grad = mlp_kernels.mlp_sdf, mlp_kernels.mlp_sdf_and_input_grad
-
-    def fwd_rows(pk, x):
-        seen["mlp_fwd"] = (pk, x.reshape(-1, x.shape[-1]).contiguous())
-        return fwd(pk, x)
-
-    def grad_rows(pk, x, *a):
-        seen["mlp_fwd_grad"] = (pk, x.reshape(-1, x.shape[-1]).contiguous())
-        return grad(pk, x, *a)
-
-    mlp_kernels.mlp_sdf, mlp_kernels.mlp_sdf_and_input_grad = fwd_rows, grad_rows
-    try:
-        yield
-    finally:
-        mlp_kernels.mlp_sdf, mlp_kernels.mlp_sdf_and_input_grad = fwd, grad
-
-
-def compact_path(params, spec, table, smi, dev, shapes, bench, tr, voxels=VOXELS):
-    """Phase 16, the compacted render paths (`fused_render: false`,
-    `jac_cap: 0`, `fwd_cap: 0`: the auto budgets of 40 % and 55 % of a
-    frame's R x M samples), `fwd_bf16` off and on, at each of `shapes`
-    ((label, observations, config, codes, poses)): the render residuals and
-    the LM normal equations under the fused-kernel gate's metrics, held
-    against the same route with every kernel swapped for its plain version
-    (RENDER_TOL of the forward's type), and against the dense unfused route
-    (RENDER_TOL bf16) wherever the math is the dense route's (the band's
-    compaction alone; the f32 forward where neither budget dropped a
-    sample), printed where it is not; the band's and the forward's overflow,
-    a second run bit-equal, B1 on the compacted band rows and B3 on the
-    forward rows against their plain versions, and ms per LM iteration of
-    the dense unfused, compacted and fused routes. Then the
-    bench path (`bench`: config, observations, pose inits) and a B=8 solve
-    (`tr`: config, observations, pose inits, GT surfaces) on the compacted
-    route, each with its launch counts (B2 none), the solve against its
-    plain versions (mean CD within 0.3 mm). Returns the kernel checks and
-    launches for the kernels line."""
-    import dataclasses
-
-    import torch
-
-    from hortimapping_tpu_torch.ops.mesher import MeshExtractor
-    from hortimapping_tpu_torch.ops.render import render_residuals
-    from hortimapping_tpu_torch.optim import lm
-    from hortimapping_tpu_torch.optim.state import init_state
-    from hortimapping_tpu_torch.optim.warmstart import retrieval_joint_opt, warmstart_solve
-
-    t_phase = time.perf_counter()
-
-    def render_term(cfg_, o, lat, T, stats=None):
-        packs = lm.make_packs(params, spec, cfg_)
-        T_oc, depths, radius = lm.render_geometry(cfg_, o, T, CUBE_RADIUS)
-        is_fg = torch.arange(cfg_.n_rays, device=dev) < cfg_.n_fg_pix
-        return render_residuals(params, spec, lat, o.rays, is_fg,
-                                o.ray_valid & o.frame_valid[..., None], o.depth_obs, T_oc, depths,
-                                radius, lm._render_config(cfg_, spec), None, packs.render,
-                                packs.fwd, stats=stats)
-
-    def fused_form(rr):
-        return rr.jac_d, rr.jac_m, torch.stack([rr.res_d, rr.res_m, rr.ray_ok.float()], -1)
-
-    def rel(a, b):
-        return max(float((x - y).norm() / y.norm().clamp_min(1e-30)) for x, y in zip(a, b))
-
-    checks = {}
-    fmt = lambda d: "{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items()) + "}"
-
-    def gate(label, what, tol, got, want, H_got, H_want, B, pose_dim):
-        """The fused-kernel gate's metrics of `got` against `want` (render
-        term, fused form) and of the LM normal equations; asserts `tol`
-        when given. Returns the line's text."""
-        g = render_gates(got, want, torch.ones(B, dtype=torch.bool, device=dev), pose_dim)
-        g["relH_lm"], g["relb_lm"] = rel(H_got[0], H_want[0]), rel(H_got[1], H_want[1])
-        if tol is not None:
-            lim = dict(tol, relH_lm=tol["relH"], relb_lm=tol["relb"])
-            assert all(g[k] <= lim[k] for k in lim), (label, what, g, lim)
-        return f"{what} {fmt(g)}{' (held)' if tol is not None else ' (not held: measured)'}"
-
-    for label, o, c, lat, T in shapes:
-        B, F, R = o.ray_valid.shape
-        dense = dataclasses.replace(c, fused_render=False)
-        fused = dataclasses.replace(c, fused_render=True)
-        s0 = init_state(lat, T)
-        it_ms = {}
-        for name, cfg_ in (("dense unfused", dense), ("fused", fused)):
-            packs = lm.make_packs(params, spec, cfg_)
-            it_ms[name] = cuda_ms(lambda: lm.lm_iteration(params, spec, cfg_, o, s0, CUBE_RADIUS,
-                                                          False, packs), 3)
-        normal_eq = lambda cfg_: lm.normal_equations(params, spec, cfg_, o, lat, T, s0.i,
-                                                     CUBE_RADIUS)[:2]
-        rr_d, ne_d = fused_form(render_term(dense, o, lat, T)), normal_eq(dense)
-        # the band's compaction alone (forward dense, f32): the dense route's
-        # math wherever the band fits its budget
-        band_only = dataclasses.replace(dense, jac_cap=0)
-        st = {}
-        rr_b = fused_form(render_term(band_only, o, lat, T, st))
-        fits = int(st["band_overflow"].sum()) == 0
-        print(f"compacted render, {label}: Jacobians on the band alone (jac_cap "
-              f"{band_only.jac_cap_resolved} a frame, forward dense f32), band overflow "
-              f"{int(st['band_overflow'].sum())} | vs dense unfused: "
-              + gate(label, "band", RENDER_TOL["bf16"] if fits else None, rr_b, rr_d,
-                     normal_eq(band_only), ne_d, B, c.pose_dim), flush=True)
-        for fwd_bf16 in (False, True):
-            mode = "bf16" if fwd_bf16 else "f32"
-            cc = dataclasses.replace(c, fused_render=False, jac_cap=0, fwd_cap=0,
-                                     fwd_bf16=fwd_bf16)
-            K, K1 = cc.jac_cap_resolved, cc.fwd_cap_resolved
-            stats, seen = {}, {}
-            with launched_rows(seen):
-                rr = render_term(cc, o, lat, T, stats)
-            again = render_term(cc, o, lat, T)
-            ne_c, ne_2 = normal_eq(cc), normal_eq(cc)
-            torch.cuda.synchronize()
-            same = (all(torch.equal(a, b) for a, b in zip(rr, again))
-                    and all(torch.equal(a, b) for a, b in zip(ne_c, ne_2)))
-            assert same, (label, mode, "compacted route differs between runs")
-            with plain_versions():
-                rr_p, ne_p = render_term(cc, o, lat, T), normal_eq(cc)
-            band, over = stats["band"], stats["band_overflow"]
-            dropped = int(over.sum()) + int(stats["fwd_overflow"].sum())
-            text_p = gate(label, "kernels vs plain versions", RENDER_TOL[mode], fused_form(rr),
-                          fused_form(rr_p), ne_c, ne_p, B, c.pose_dim)
-            # against the dense f32 route the gate holds where the math is the
-            # same: an f32 forward and no sample dropped by either budget
-            text_d = gate(label, "vs dense unfused",
-                          RENDER_TOL["bf16"] if dropped == 0 and not fwd_bf16 else None,
-                          fused_form(rr), rr_d, ne_c, ne_d, B, c.pose_dim)
-            kept_band = int((band - over).sum())
-            kept_fwd = int((stats["in_radius"] - stats["fwd_overflow"]).sum())
-            packs = lm.make_packs(params, spec, cc)
-            it_ms[f"compacted {mode}"] = cuda_ms(
-                lambda: lm.lm_iteration(params, spec, cc, o, s0, CUBE_RADIUS, False, packs), 3)
-            print(f"compacted render, {label}: B={B} F={F} R={R} M={c.n_sample_on_ray}, forward "
-                  f"{mode}, jac_cap {K} / fwd_cap {K1} a frame (auto) | band {int(band.sum())} "
-                  f"samples, overflow {int(over.sum())} in {int((over > 0).sum())} of {B * F} "
-                  f"frames (largest frame band {int(band.max())}) | in-radius "
-                  f"{int(stats['in_radius'].sum())}, undecoded {int(stats['fwd_overflow'].sum())} "
-                  f"in {int((stats['fwd_overflow'] > 0).sum())} frames | two runs bit-equal | "
-                  f"{text_p} | {text_d}", flush=True)
-            pk1, x1 = seen["mlp_fwd_grad"]
-            pk3, x3 = seen["mlp_fwd"]
-            assert not pk1.bf16 and pk3.bf16 == fwd_bf16
-            checks[(label, "mlp_fwd", mode)] = check_rows(
-                f"{label} compacted forward rows", "mlp_fwd", pk3, x3, kept_fwd)
-            if not fwd_bf16:   # B1 runs f32 in both modes
-                checks[(label, "mlp_fwd_grad", mode)] = check_rows(
-                    f"{label} compacted band rows", "mlp_fwd_grad", pk1, x1, kept_band)
-        print(f"ms per LM iteration, {label} (B={B}): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in it_ms.items()) + f" | {smi}", flush=True)
-
-    # the bench path on the compacted route (coarse-to-fine, auto budgets);
-    # its launches are those of the bench fine rows' records
-    b_cfg, b_obs, b_T0 = bench
-    launches = {}
-    for fwd_bf16 in (False, True):
-        mode = "bf16" if fwd_bf16 else "f32"
-        cc = dataclasses.replace(b_cfg, fused_render=False, jac_cap=0, fwd_cap=0,
-                                 fwd_bf16=fwd_bf16)
-        counts = LaunchCounts()
-        t0 = time.perf_counter()
-        res = retrieval_joint_opt(params, spec, cc, table, b_obs, b_T0, CUBE_RADIUS,
-                                  n_score_pts=128, n_scales=1, scale_min=1.0, scale_max=1.0,
-                                  score_bf16=True, device=dev)
-        torch.cuda.synchronize()
-        t_bench = time.perf_counter() - t0
-        counts.read()
-        counts.require(("mlp_fwd_grad", "mlp_fwd"), "compacted bench path")
-        assert counts.n["fused_render"] == 0, counts.n
-        assert not bool(res.failed.any()) and bool(torch.isfinite(res.latent).all())
-        launches[("bench fine", mode)] = dict(counts.n)
-        print(f"compacted bench path, forward {mode}: B={b_obs.points_w.shape[0]}, "
-              f"{t_bench * 1e3:.1f} ms (retrieval + c2f LM, no meshing), mean iters "
-              f"{float(res.iter_count.float().mean()):.2f} | launches {counts}", flush=True)
-
-    # a B=8 solve on the compacted route against its plain versions
-    t_cfg, t_obs, t_T0, t_gts = tr
-    mesher = MeshExtractor(params, spec, voxels_dim=voxels, cube_radius=CUBE_RADIUS, device=dev)
-    lat0 = table.mean(0, keepdim=True).expand(t_T0.shape[0], spec.code_length).contiguous()
-    for fwd_bf16 in (False, True):
-        cc = dataclasses.replace(t_cfg, fused_render=False, jac_cap=0, fwd_cap=0,
-                                 fwd_bf16=fwd_bf16)
-
-        def solve():
-            t0 = time.perf_counter()
-            r = warmstart_solve(params, spec, cc, table, t_obs, lat0, t_T0, CUBE_RADIUS,
-                                device=dev)
-            meshes = mesher.complete_mesh_batch(r.latent, inverse_poses(r))
-            torch.cuda.synchronize()
-            check_result(r, meshes, t_T0.shape[0], spec.code_length)
-            return r, meshes, time.perf_counter() - t0
-
-        counts = LaunchCounts()
-        r_k, m_k, t_k = solve()
-        counts.read()
-        counts.require(("mlp_fwd_grad", "mlp_fwd", "mlp_shared_latent"), "compacted B=8 solve")
-        assert counts.n["fused_render"] == 0, counts.n
-        launches[("trust region", "bf16" if fwd_bf16 else "f32")] = dict(counts.n)
-        with plain_versions():
-            r_p, m_p, t_p = solve()
-        cd_k, cd_p = mean_cd_mm(m_k, t_gts, dev), mean_cd_mm(m_p, t_gts, dev)
-        gap = cd_k - cd_p
-        print(f"compacted B={t_T0.shape[0]} solve (challenge YAML, forward "
-              f"{'bf16' if fwd_bf16 else 'f32'}): mean CD kernels {cd_k:.4f} mm vs plain "
-              f"{cd_p:.4f} mm, gap {gap:+.4f} mm (gate {CD_GATE_MM} mm) | batch kernels "
-              f"{t_k * 1e3:.1f} ms, plain {t_p * 1e3:.1f} ms | mean iters kernels "
-              f"{float(r_k.iter_count.float().mean()):.2f}, plain "
-              f"{float(r_p.iter_count.float().mean()):.2f} | launches {counts}", flush=True)
-        assert abs(gap) <= CD_GATE_MM, gap
-    print(f"compacted phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return checks, launches
-
-
 def write_sdf_samples(root: str, cat, n_scenes: int, n_each: int, seed: int = 0):
     """DeepSDF SdfSamples of `n_scenes` ellipsoids of the category's family
     (codes ~ N(0, 0.5^2)), `n_each` samples of each sign a scene: points
@@ -3208,9 +2968,10 @@ def main() -> int:
 
     b2 = {"bench coarse": check_render("bench coarse", pk16, pk32,
                                        *subsample_observations(obs, cfg), lat_r, T_r, dev)}
-    b2["bench fine"] = check_render("bench fine", pk16, pk32, *_subsample(
-        obs, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac, cfg.fine_sample_frac,
-        cfg.fine_pts_frac), lat_r, T_r, dev)
+    fine = _subsample(obs, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac, cfg.fine_sample_frac,
+                      cfg.fine_pts_frac)
+    b2["bench fine"] = check_render("bench fine", pk16, pk32, *fine, lat_r, T_r, dev)
+    check_dense_route("bench fine", params, spec, *fine, lat_r, T_r, dev, smi)
     b2["greenhouse"] = check_render("greenhouse", pk16, pk32, obs, gh_cfg, lat_g, T_g, dev)
     records["fused_render"] = kernel_record(
         "fused_render", dict(b2["greenhouse"], err=max(r["err"] for r in b2.values())), 0,
@@ -3445,18 +3206,6 @@ def main() -> int:
     rows += [kernel_record(k, inter[k], inter["launches"][k], f"interactive wild ({shape})")
              for k, shape in (("mlp_fwd_grad", "one lane"), ("fused_render", "B=1"),
                               ("mlp_fwd", "the row's retrieval"), ("mlp_shared_latent", "one code"))]
-
-    # ---------------- 16. compacted render paths ----------------
-    fine = _subsample(obs, cfg, cfg.fine_frame_stride, cfg.fine_ray_frac, cfg.fine_sample_frac,
-                      cfg.fine_pts_frac)
-    checks, launches = compact_path(
-        params, spec, table, smi, dev,
-        shapes=(("trust region", obs_tr, tr_cfg, lat_rt, T_rt),
-                ("bench fine", *fine, lat_r, T_r)),
-        bench=(cfg, obs, T0), tr=(tr_cfg, obs_tr, T0_tr, gts_tr))
-    for (label, name, mode), check in checks.items():
-        rows.append(kernel_record(name, check, launches[(label, mode)][name],
-                                  f"compacted {label}, forward {mode}"))
 
     # ---------------- 17. fruit-parallel execution over a mesh ----------------
     rows += mesh_path(params, spec, table, pk16, pk32, smi, dev, obs, T0, gts,

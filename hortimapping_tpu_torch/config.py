@@ -137,10 +137,10 @@ class JointOptConfig:
     outlier_scale_min: float = 0.5
     outlier_scale_max: float = 1.25
     outlier_rot_max_deg: float = 60.0
-    # performance knobs of the JAX package (`opt.tpu`). The compacted
-    # render paths (dense route only, `ops/render.py`): jac_cap and fwd_cap
-    # -1 = dense, 0 = auto budget, > 0 explicit; fwd_bf16 = the compacted
-    # route's forward pass in bf16
+    # performance knobs of the JAX package (`opt.tpu`). jac_cap, fwd_cap
+    # and fwd_bf16 select the JAX package's compacted render route, which
+    # the port does not have: parsed for schema parity, and refused by
+    # `check_ported` unless at their defaults (-1, -1, off)
     jac_cap: int = -1
     fwd_cap: int = -1
     fwd_bf16: bool = False
@@ -169,26 +169,6 @@ class JointOptConfig:
         return mlp_kernels.supported(spec)
 
     @property
-    def jac_cap_resolved(self) -> int:
-        """Band samples a frame whose Jacobians the compacted route takes:
-        0 = dense; auto (0) = 40 % of the frame's R x M samples."""
-        if self.jac_cap == -1:
-            return 0
-        if self.jac_cap == 0:
-            return (2 * self.n_rays * self.n_sample_on_ray) // 5
-        return self.jac_cap
-
-    @property
-    def fwd_cap_resolved(self) -> int:
-        """In-radius samples a frame the compacted route decodes: 0 =
-        dense; auto (0) = 55 % of the frame's R x M samples."""
-        if self.fwd_cap == -1:
-            return 0
-        if self.fwd_cap == 0:
-            return (11 * self.n_rays * self.n_sample_on_ray) // 20
-        return self.fwd_cap
-
-    @property
     def pose_dim(self) -> int:
         return 7 if self.scale_on else 6
 
@@ -198,11 +178,20 @@ class JointOptConfig:
 
     def check_ported(self) -> None:
         """Raise for an `init_mode` other than mean or retrieval (the JAX
-        package treats every other mode as mean)."""
+        package treats every other mode as mean) and for any setting of the
+        compacted render route (`jac_cap`, `fwd_cap`, `fwd_bf16`), also
+        where the JAX package would ignore it on its fused route."""
         if self.init_mode not in ("mean", "retrieval"):
             raise NotImplementedError(
                 f"not ported to the PyTorch package: init_mode={self.init_mode!r}"
             )
+        for name, default in (("jac_cap", -1), ("fwd_cap", -1), ("fwd_bf16", False)):
+            value = getattr(self, name)
+            if value != default:
+                raise NotImplementedError(
+                    f"not ported to the PyTorch package: opt.tpu.{name}={value!r} "
+                    f"(the compacted render route; leave it at {default!r})"
+                )
 
     @classmethod
     def from_dict(cls, cfg: Dict[str, Any]) -> "JointOptConfig":

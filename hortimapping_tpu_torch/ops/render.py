@@ -1,19 +1,13 @@
 """Occlusion-aware depth/mask render residuals, batched over fruits and
 frames.
 
-Counterpart of `hortimapping_tpu/ops/render.py`: the dense masked [R, M]
-path (the reference render loss as fixed-shape masked math), its compacted
-two-pass form (`jac_cap` / `fwd_cap`) and the fused route through
-`ops/render_kernel.fused_render` with its frame-level `min_valid_sample`
-epilogue. Every array carries leading [B, F] axes (the JAX package vmaps a
-per-frame function over both).
-
-The compacted form keeps the first K flagged samples of each (lane, frame)
-in index order: a sample's rank is `cumsum(mask) - 1`, the k-th kept sample
-is found by a binary search of that cumsum, and results return to their
-(r, m) slots by a gather at the rank. No sort, no scatter, no atomic, so
-the route is deterministic; overflow drops the highest-index samples, as
-JAX's `jnp.nonzero(size=K)` does.
+Counterpart of `hortimapping_tpu/ops/render.py`, in two routes: the fused
+route through `ops/render_kernel.fused_render` with its frame-level
+`min_valid_sample` epilogue, and the dense masked [R, M] route (the
+reference render loss as fixed-shape masked math), the fused kernel's plain
+version and the route of a decoder the kernel does not take. Every array
+carries leading [B, F] axes (the JAX package vmaps a per-frame function
+over both).
 """
 
 from __future__ import annotations
@@ -26,7 +20,6 @@ import torch
 from hortimapping_tpu_torch.models.decoder import (
     DecoderSpec,
     Params,
-    decoder_apply,
     decoder_sdf_and_input_grad,
 )
 from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
@@ -50,10 +43,7 @@ class RenderConfig:
     occlusion_th: float = 0.03      # [m]
     min_valid_sample: int = 100     # frame invalid below this many in-radius samples
     min_grad_th: float = 1e-6       # de/do cutoff
-    jac_cap: int = 0                # dense route: 0 = dense Jacobians; > 0 = band budget a frame
-    fwd_cap: int = 0                # with jac_cap: 0 = dense forward; > 0 = in-radius budget a frame
-    fwd_bf16: bool = False          # with jac_cap: the forward pass in bf16
-    use_pallas: bool = False        # dense route: decoder through the kernels (B1; B3 compacted)
+    use_pallas: bool = False        # dense route: decoder through the fwd+input-grad kernel (B1)
     fused: bool = False             # the fused render kernel
     fused_bf16: bool = True         # storage type inside the fused kernel
 
@@ -102,17 +92,10 @@ def render_residuals(
     cfg: RenderConfig,
     lane_active: Optional[torch.Tensor] = None,  # [B] bool, False = frozen lane
     packed: Optional[mlp_kernels.PackedDecoder] = None,
-    packed_fwd: Optional[mlp_kernels.PackedDecoder] = None,
-    stats: Optional[dict] = None,
 ) -> RenderResiduals:
     """`packed`: the decoder packed for the route taken (bf16 or f32 per
-    `cfg.fused_bf16` on the fused route, f32 on the dense one); `packed_fwd`:
-    the compacted route's forward pack (bf16 or f32 per `cfg.fwd_bf16`).
-    Each is packed here when needed and not given. With `stats` (a dict),
-    the compacted route records per-(lane, frame) tensors: the band's size
-    (`band`) and the samples it dropped (`band_overflow`), and with `fwd_cap`
-    the in-radius samples (`in_radius`) and those left undecoded
-    (`fwd_overflow`)."""
+    `cfg.fused_bf16` on the fused route, f32 on the dense one), packed here
+    when needed and not given."""
     M = sampled_depths.shape[-1]
     f32 = torch.float32
     pts_obj = sample_points(rays, sampled_depths, T_oc)                       # [B, F, R, M, 3]
@@ -127,46 +110,17 @@ def render_residuals(
         )
 
     C = spec.code_length
-    B, F, R = ray_valid.shape
-    N = R * M
     valid = (torch.linalg.norm(pts_obj, dim=-1) < bbx_radius[..., None, None]) & ray_valid[..., None]
     frame_ok = valid.sum((-2, -1)) >= cfg.min_valid_sample                     # [B, F]
 
     pallas_on = cfg.use_pallas and mlp_kernels.supported(spec)
     if pallas_on and packed is None:
         packed = mlp_kernels.pack_params(params, spec, f32)
-    if cfg.jac_cap > 0:
-        # pass 1, forward only: the dense grid, or its first K1 in-radius
-        # samples (an undecoded sample reads sdf 1.0: outside the band and
-        # the occupancy, as the out-of-radius ones are masked anyway)
-        fwd_dtype = torch.bfloat16 if cfg.fwd_bf16 else f32
-        if pallas_on and packed_fwd is None:
-            packed_fwd = (packed if not cfg.fwd_bf16
-                          else mlp_kernels.pack_params(params, spec, fwd_dtype))
-
-        def forward(pts):
-            rows = _rows(latent, pts)
-            if pallas_on:
-                return mlp_kernels.mlp_sdf(packed_fwd, rows)
-            return decoder_apply(params, spec, rows, fwd_dtype)[..., 0]
-
-        if cfg.fwd_cap > 0:
-            flat_valid = valid.reshape(B, F, N)
-            sel1, keep1, rank1 = first_k(flat_valid, min(cfg.fwd_cap, N))
-            sdf1 = forward(_take_rows(pts_obj.reshape(B, F, N, 3), sel1))        # [B, F, K1]
-            sdf = torch.where(keep1, torch.take_along_dim(sdf1, rank1, dim=-1), 1.0).reshape(B, F, R, M)
-            if stats is not None:
-                stats["in_radius"] = flat_valid.sum(-1)
-                stats["fwd_overflow"] = (flat_valid & ~keep1).sum(-1)
-        else:
-            sdf = forward(pts_obj)
-        dsdf_din = None   # pass 2 below, on the band samples alone
+    inputs = _rows(latent, pts_obj)
+    if pallas_on:
+        sdf, dsdf_din = mlp_kernels.mlp_sdf_and_input_grad(packed, inputs)
     else:
-        inputs = _rows(latent, pts_obj)
-        if pallas_on:
-            sdf, dsdf_din = mlp_kernels.mlp_sdf_and_input_grad(packed, inputs)
-        else:
-            sdf, dsdf_din = decoder_sdf_and_input_grad(params, spec, inputs)
+        sdf, dsdf_din = decoder_sdf_and_input_grad(params, spec, inputs)
 
     if cfg.log_occ_on:
         sigma = logistic_sigma(cfg.occ_cutoff)
@@ -210,25 +164,6 @@ def render_residuals(
     res_d = torch.where(ray_ok, target - d_u, zero)
     res_m = torch.where(ray_ok, occ_ray - is_fg.to(f32), zero)
 
-    w = sample_mask
-    if cfg.jac_cap > 0:
-        # pass 2: d sdf / d[code, xyz] (B1, f32) on the first K band samples
-        # of each (lane, frame), gathered back to their (r, m) slots; the
-        # dropped ones (overflow) carry no Jacobian, as in JAX
-        flat_band = sample_mask.reshape(B, F, N)
-        sel, keep, rank = first_k(flat_band, min(cfg.jac_cap, N))
-        rows = _rows(latent, _take_rows(pts_obj.reshape(B, F, N, 3), sel))       # [B, F, K, C+3]
-        if pallas_on:
-            _, g_sel = mlp_kernels.mlp_sdf_and_input_grad(packed, rows)
-        else:
-            _, g_sel = decoder_sdf_and_input_grad(params, spec, rows)
-        dsdf_din = torch.where(keep[..., None], torch.take_along_dim(g_sel, rank[..., None], dim=2),
-                               0.0).reshape(B, F, R, M, C + 3)
-        w = keep.reshape(B, F, R, M)
-        if stats is not None:
-            stats["band"] = flat_band.sum(-1)
-            stats["band_overflow"] = (flat_band & ~keep).sum(-1)
-
     ds_dcode = dsdf_din[..., :C]
     ds_dx = dsdf_din[..., C:]
     if cfg.scale_on:
@@ -236,7 +171,7 @@ def render_residuals(
     else:
         dx_dT = points_to_pose_jacobian_se3(pts_obj)
     ds_dT = torch.einsum("...k,...kp->...p", ds_dx, dx_dT)                    # [B, F, R, M, P]
-    w = w.to(f32)
+    w = sample_mask.to(f32)
     jac_d = torch.cat([torch.einsum("...m,...mp->...p", w * de_ds, ds_dT),
                        torch.einsum("...m,...mc->...c", w * de_ds, ds_dcode)], dim=-1)
     jac_m = torch.cat([torch.einsum("...m,...mp->...p", w * dm_ds, ds_dT),
@@ -250,26 +185,6 @@ def _rows(latent: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     code of latent [B, C]."""
     lat = latent.reshape((latent.shape[0],) + (1,) * (pts.dim() - 2) + latent.shape[1:])
     return torch.cat([lat.expand(pts.shape[:-1] + latent.shape[1:]), pts], dim=-1)
-
-
-def first_k(mask: torch.Tensor, K: int):
-    """The first K True entries of each row of mask [..., N], in index
-    order: (sel [..., K] their indices, N past the last one; keep [..., N]
-    the entries kept; rank [..., N] each kept entry's slot in sel, clamped
-    to [0, K) elsewhere). The k-th kept entry is where the cumsum of the
-    mask first reaches k + 1."""
-    cum = torch.cumsum(mask, dim=-1)
-    rank = cum - 1
-    keep = mask & (rank < K)
-    targets = torch.arange(1, K + 1, device=mask.device).expand(mask.shape[:-1] + (K,))
-    sel = torch.searchsorted(cum, targets.contiguous())
-    return sel, keep, rank.clamp(0, K - 1)
-
-
-def _take_rows(pts: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """pts [..., N, 3] at sel [..., K] (an index N reads the last point,
-    whose result is never kept)."""
-    return torch.take_along_dim(pts, sel.clamp(max=pts.shape[-2] - 1)[..., None], dim=-2)
 
 
 def _render_residuals_fused(

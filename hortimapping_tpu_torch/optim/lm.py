@@ -64,14 +64,12 @@ _graphed_lock = threading.Lock()
 class Packs:
     """Decoder weights packed once per solve: for the render route (bf16 or
     f32 per `fused_bf16` on the fused route, f32 on the dense one), for the
-    SDF term (f32), where the solve retrieves codes for retrieval scoring
-    (per `retrieval_score_bf16`), and for the compacted route's forward pass
-    (per `fwd_bf16`)."""
+    SDF term (f32), and where the solve retrieves codes for retrieval
+    scoring (per `retrieval_score_bf16`)."""
 
     render: Optional[mlp_kernels.PackedDecoder]
     sdf: Optional[mlp_kernels.PackedDecoder]
     score: Optional[mlp_kernels.KernelDecoder] = None
-    fwd: Optional[mlp_kernels.PackedDecoder] = None
 
 
 def make_packs(params: Params, spec: DecoderSpec, cfg: JointOptConfig,
@@ -82,14 +80,9 @@ def make_packs(params: Params, spec: DecoderSpec, cfg: JointOptConfig,
     sdf = f32 if cfg.pallas_resolved(spec) else None
     scorer = (mlp_kernels.KernelDecoder(params, spec, bf16=cfg.retrieval_score_bf16)
               if score else None)
-    rcfg = _render_config(cfg, spec)
-    bf16 = lambda: mlp_kernels.pack_params(params, spec, torch.bfloat16)
-    if takes_fused(rcfg, spec):
-        return Packs(bf16() if cfg.fused_bf16 else f32, sdf, scorer)
-    fwd = None
-    if rcfg.jac_cap > 0 and rcfg.use_pallas:
-        fwd = bf16() if cfg.fwd_bf16 else f32
-    return Packs(f32, sdf, scorer, fwd)
+    if takes_fused(_render_config(cfg, spec), spec) and cfg.fused_bf16:
+        return Packs(mlp_kernels.pack_params(params, spec, torch.bfloat16), sdf, scorer)
+    return Packs(f32, sdf, scorer)
 
 
 def _render_config(cfg: JointOptConfig, spec: DecoderSpec) -> RenderConfig:
@@ -98,9 +91,6 @@ def _render_config(cfg: JointOptConfig, spec: DecoderSpec) -> RenderConfig:
         log_occ_on=cfg.log_sdf_occ,
         occ_cutoff=cfg.occ_cutoff_m,
         occlusion_on=cfg.occlusion_on,
-        jac_cap=cfg.jac_cap_resolved,
-        fwd_cap=cfg.fwd_cap_resolved,
-        fwd_bf16=cfg.fwd_bf16,
         use_pallas=cfg.pallas_resolved(spec),
         fused=cfg.fused_resolved(spec),
         fused_bf16=cfg.fused_bf16,
@@ -229,7 +219,7 @@ def _assemble_normal_equations(
         cfg, cube_radius, obs.T_wc, obs.ray_valid, obs.frame_valid, T_ow)
     rr = render_residuals(
         params, spec, latent, obs.rays, is_fg, ray_mask, obs.depth_obs, T_oc, depths,
-        depth_range, _render_config(cfg, spec), lane_active, packs.render, packs.fwd,
+        depth_range, _render_config(cfg, spec), lane_active, packs.render,
     )
     failed, H, b, pts_o, obs_count, w2_d = _render_normal_eq(
         cfg, rr.res_d, rr.jac_d, rr.res_m, rr.jac_m, rr.ray_ok, i, obs.points_w, T_ow)
@@ -401,7 +391,7 @@ def lm_iteration(params, spec, cfg, obs, state: OptState, cube_radius: float,
             "pre", pre, obs.T_wc, obs.ray_valid, obs.frame_valid, T_ow, state.done, state.failed)
         rr = render_residuals(
             params, spec, latent, obs.rays, is_fg, ray_mask, obs.depth_obs, T_oc, depths,
-            depth_range, _render_config(cfg, spec), lane_active, packs.render, packs.fwd,
+            depth_range, _render_config(cfg, spec), lane_active, packs.render,
         )
         failed, H, b, pts_o = run("mid", mid, rr.res_d, rr.jac_d, rr.res_m, rr.jac_m, rr.ray_ok,
                                   i, obs.points_w, T_ow)
@@ -722,6 +712,15 @@ def maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known=False
     return res
 
 
+def _configured_solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, device,
+                      packs) -> OptResult:
+    """The configured solver: coarse-to-fine or single phase by
+    `cfg.coarse_to_fine`, then the configured pose polish."""
+    solver = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
+    res = solver(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, device, packs)
+    return maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known, device, packs)
+
+
 def _continue_joint_opt_batched(params, spec, cfg, obs, latent0, T_ow0, cube_radius,
                                 pose_known, start_iter: int, packs) -> OptResult:
     """Fixed-lambda batched solve starting from iteration `start_iter`
@@ -877,11 +876,9 @@ def solve_in_chunks(
         packs = make_packs(params, spec, cfg)
     if max_batch is None:
         max_batch = 64 if cfg.fused_resolved(spec) else 16
-    base = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
 
     def solver(o, lat, T):
-        res = base(params, spec, cfg, o, lat, T, cube_radius, pose_known, lat.device, packs)
-        return maybe_pose_polish(params, spec, cfg, o, res, cube_radius, pose_known,
+        return _configured_solve(params, spec, cfg, o, lat, T, cube_radius, pose_known,
                                  lat.device, packs)
 
     B = latent0.shape[0]
@@ -1071,9 +1068,8 @@ def joint_opt(
 
         latent0, T_ow0 = maybe_retrieval_init(params, spec, cfg, latent_table, obs, latent0,
                                               T_ow0, dev, packs)
-    solver = coarse_to_fine_joint_opt if cfg.coarse_to_fine else shape_pose_joint_opt_batched
-    res = solver(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known, dev, packs)
-    return maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known, dev, packs)
+    return _configured_solve(params, spec, cfg, obs, latent0, T_ow0, cube_radius, pose_known,
+                             dev, packs)
 
 
 def joint_opt_packed(

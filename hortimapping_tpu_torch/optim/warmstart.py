@@ -263,10 +263,8 @@ def retrieval_joint_opt(
         scale_min=scale_min, scale_max=scale_max, T_init=T_init,
         score_bf16=score_bf16, prior_w=cfg.retrieval_prior_w,
     )
-    solver = lm.coarse_to_fine_joint_opt if cfg.coarse_to_fine else lm.shape_pose_joint_opt_batched
-    res = solver(params, spec, cfg, obs, lat_r, T_r, cube_radius, pose_known, device=dev,
-                 packs=packs)
-    return lm.maybe_pose_polish(params, spec, cfg, obs, res, cube_radius, pose_known, dev, packs)
+    return lm._configured_solve(params, spec, cfg, obs, lat_r, T_r, cube_radius, pose_known, dev,
+                                packs)
 
 
 def objective_value_batched(

@@ -510,66 +510,6 @@ def test_train_steps_card_match_cpu(cuda, tmp_path, monkeypatch):
     assert np.abs(res_card.latent_codes - res_cpu.latent_codes).max() <= 5e-5
 
 
-def _compacted_inputs(spec, dev, B=3, F=2, R=48, M=22, seed=11):
-    """Render inputs of `ops/render.render_residuals` (rays, not points) on
-    `dev`, with padded rays in one frame."""
-    rng = np.random.default_rng(seed)
-    ang = np.concatenate([rng.normal(size=(B, F, R, 2)) * 0.1, np.ones((B, F, R, 1))], -1)
-    T_oc = np.linalg.inv(np.array([[1, 0, 0, 0.01], [0, 1, 0, -0.02], [0, 0, 1, 0.3],
-                                   [0, 0, 0, 1]]))
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32).to(dev)
-    ray_valid = torch.ones(B, F, R, dtype=torch.bool, device=dev)
-    ray_valid[0, 1, R - 5:] = False
-    return (t(rng.normal(size=(B, spec.code_length)) * 0.05), t(ang),
-            torch.arange(R, device=dev) < R // 2, ray_valid,
-            t(0.3 + rng.normal(size=(B, F, R)) * 0.03), t(np.broadcast_to(T_oc, (B, F, 4, 4))),
-            t(np.broadcast_to(np.linspace(0.2, 0.42, M), (B, F, M))), t(np.full((B, F), 0.12)))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("fwd_bf16", [False, True], ids=["f32", "bf16"])
-def test_compacted_render_kernels_match_plain(cuda, fwd_bf16):
-    """The compacted route on the card: B3 on the forward rows (the first K1
-    in-radius samples a frame, overflowing) and B1 on the compacted band
-    rows (overflowing), each launched once, against the same route on the
-    CPU (plain versions). f32 forward: values within 2e-5 of each output's
-    largest magnitude, ray_ok equal. bf16 forward: the fused-kernel gate's
-    residual quantiles. A second run is bit-equal."""
-    from hortimapping_tpu_torch.ops.render import RenderConfig, render_residuals
-
-    params, spec = _decoder("synthetic_pepper_32", 3, cuda)
-    args = _compacted_inputs(spec, cuda)
-    probe = {}
-    base = dict(scale_on=True, log_occ_on=True, occ_cutoff=0.15, min_valid_sample=10,
-                use_pallas=True, fwd_bf16=fwd_bf16)
-    cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in params.items()}
-    cpu_args = tuple(a.cpu() for a in args)
-    render_residuals(cpu_params, spec, *cpu_args,
-                     RenderConfig(jac_cap=48 * 22, fwd_cap=48 * 22, **base), stats=probe)
-    cfg = RenderConfig(jac_cap=int(probe["band"].min()) // 2,
-                       fwd_cap=int(0.8 * probe["in_radius"].min()), **base)
-    want_stats, stats = {}, {}
-    want = render_residuals(cpu_params, spec, *cpu_args, cfg, stats=want_stats)
-    before = (mlp_kernels.launches, mlp_kernels.launches_fwd)
-    got = render_residuals(params, spec, *args, cfg, stats=stats)
-    again = render_residuals(params, spec, *args, cfg)
-    torch.cuda.synchronize()
-    assert (mlp_kernels.launches, mlp_kernels.launches_fwd) == (before[0] + 2, before[1] + 2)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert int(stats["band_overflow"].sum()) > 0 and int(stats["fwd_overflow"].sum()) > 0
-    ok = want.ray_ok.to(cuda)
-    assert int(ok.sum()) > 0
-    if not fwd_bf16:
-        assert torch.equal(got.ray_ok.cpu(), want.ray_ok)
-        for g, w in zip(got[:4], want[:4]):
-            assert float(_rel(g, w).max()) <= 2e-5
-    else:
-        for g, w in ((got.res_d, want.res_d), (got.res_m, want.res_m)):
-            d = (g - w.to(cuda)).abs()[ok].double()
-            assert float(d.median()) <= 2e-3 and float(torch.quantile(d, 0.9)) <= 4e-3
-            assert float((d > 1e-3).double().mean()) <= 0.2
-
-
 @pytest.mark.cuda
 def test_one_lane_kernels_match_plain(cuda):
     """The interactive replay's shapes: B1 on one lane of 2000 rows, B2 on

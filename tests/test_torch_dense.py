@@ -1,27 +1,27 @@
-"""PyTorch port vs the JAX package: the compacted render paths (`jac_cap`,
-`fwd_cap`, `fwd_bf16`) of the dense render route, on the CPU.
+"""PyTorch port vs the JAX package: the dense render route (the fused
+render kernel's plain version and the route of a decoder the kernel does
+not take), on the CPU.
 
-* `render_residuals` against JAX's, vmapped over frames and lanes, with the
-  Jacobian budget at the band's size, above it and overflowing, the forward
-  budget fitting and overflowing, the forward in f32 and bf16, Sim(3) and
-  SE(3), linear and logistic occupancy;
+* `render_residuals` against JAX's, vmapped over frames and lanes: B = 2
+  lanes x F = 2 frames with padded rays and a bg ray without depth, Sim(3)
+  and SE(3), linear and logistic occupancy;
 * the port's plain bf16 forward chain (B3's plain version) against JAX's
   bf16 `decoder_apply`;
-* the normal equations, each LM iteration and a short coarse-to-fine solve on
-  `tests/test_torch_slice.py`'s bench fixture with `fused_render: false,
-  jac_cap: 0, fwd_cap: 0`;
-* the resolved budgets of every YAML in `configs/`, and the fused route's
-  condition `pose_dim + C <= 128` (a C = 122 code under Sim(3) takes the
-  dense route in both packages).
+* the normal equations (decoder plain and through the packed chain), each
+  LM iteration and a short coarse-to-fine solve on
+  `tests/test_torch_slice.py`'s bench fixture with `fused_render: false`;
+* the fused route's condition `pose_dim + C <= 128` (a C = 122 code under
+  Sim(3) takes the dense route in both packages);
+* the JAX package's compacted render route (`opt.tpu.jac_cap`, `fwd_cap`,
+  `fwd_bf16`), which the port does not have: no YAML in `configs/` sets it,
+  and a config that does is refused by name before any solve.
 
 Tolerances. f32 on both sides with sums in other orders: values within 2e-5
 of each output's largest magnitude (or of 0.05, where all are smaller), the
-boolean outputs equal (as `tests/test_torch_render.py`). The bf16 forward: XLA's bf16 dot and the
-port's bf16-rounded operands give the same products summed in another
-order, so an activation now and then rounds one bf16 ulp the other way
-(measured: median |d sdf| 2e-9, max 1.6e-4 over 5000 rows); there the
-render outputs are held as in f32 where no sample changed sides of the band
-edge, which holds on these scenes (the test asserts the band masks equal).
+boolean outputs equal (as `tests/test_torch_render.py`). The bf16 forward:
+XLA's bf16 dot and the port's bf16-rounded operands give the same products
+summed in another order (measured: median |d sdf| 2e-9, max 1.6e-4 over
+5000 rows).
 """
 
 import dataclasses
@@ -45,15 +45,17 @@ from hortimapping_tpu.optim import state as jstate
 from hortimapping_tpu.optim.lm import normal_equations as jne
 from hortimapping_tpu.optim.warmstart import retrieval_joint_opt as jsolve
 from hortimapping_tpu_torch import config as tconfig
+from hortimapping_tpu_torch import serve as tserve
 from hortimapping_tpu_torch.models.decoder import DecoderSpec as TSpec
 from hortimapping_tpu_torch.models.workspace import params_from_jax
 from hortimapping_tpu_torch.ops import mlp_kernels
 from hortimapping_tpu_torch.ops import render as trender_mod
 from hortimapping_tpu_torch.ops.render import RenderConfig as TRC
-from hortimapping_tpu_torch.ops.render import first_k
 from hortimapping_tpu_torch.ops.render import render_residuals as trender
+from hortimapping_tpu_torch.ops.render import takes_fused
 from hortimapping_tpu_torch.optim import lm as tlm
 from hortimapping_tpu_torch.optim import state as tstate
+from hortimapping_tpu_torch.optim import warmstart as twarm
 from hortimapping_tpu_torch.optim.lm import normal_equations as tne
 from hortimapping_tpu_torch.optim.warmstart import retrieval_init_batched as tinit
 from hortimapping_tpu_torch.optim.warmstart import retrieval_joint_opt as tsolve
@@ -107,10 +109,10 @@ def _is_fg():
     return np.arange(R_FG + R_BG) < R_FG
 
 
-def _port(tp, scenes, cfg, stats=None):
+def _port(tp, scenes, cfg):
     rays, rv, dobs, T_oc, depths, bbx, latent = (torch.as_tensor(a) for a in scenes)
     return trender(tp, TSpec(**FIELDS), latent, rays, torch.as_tensor(_is_fg()), rv, dobs, T_oc,
-                   depths, bbx, cfg, stats=stats)
+                   depths, bbx, cfg)
 
 
 def _jax(jp, scenes, cfg):
@@ -140,81 +142,26 @@ def _held(got, want):
         _close(getattr(got, name).numpy(), getattr(want, name), name)
 
 
-N = (R_FG + R_BG) * M
-# jac: the Jacobian budget K against the band's largest frame ("at"), all
-# R x M samples ("above") or half the smallest frame's band ("overflow");
-# fwd: no forward budget (None), the largest in-radius count ("fit") or
-# 60 % of the smallest ("overflow")
-CASES = {
-    "sim3_log_jac_at_band": dict(scale_on=True, log_occ_on=True, jac="at"),
-    "sim3_log_jac_above_band": dict(scale_on=True, log_occ_on=True, jac="above"),
-    "sim3_log_jac_overflow": dict(scale_on=True, log_occ_on=True, jac="overflow"),
-    "se3_linear_jac_overflow": dict(scale_on=False, log_occ_on=False, jac="overflow"),
-    "se3_log_fwd_cap_fits": dict(scale_on=False, log_occ_on=True, jac="above", fwd="fit"),
-    "sim3_linear_fwd_cap_overflow": dict(scale_on=True, log_occ_on=False, jac="at",
-                                         fwd="overflow"),
-    "sim3_log_fwd_bf16": dict(scale_on=True, log_occ_on=True, jac="above", bf16=True),
-    "se3_linear_fwd_bf16_both_overflow": dict(scale_on=False, log_occ_on=False, jac="overflow",
-                                              fwd="overflow", bf16=True),
-}
-
-
-@pytest.mark.parametrize("case", list(CASES))
-def test_compacted_render_matches_jax(world, case):
+@pytest.mark.parametrize("log_occ_on", [True, False], ids=["logistic", "linear"])
+@pytest.mark.parametrize("scale_on", [True, False], ids=["sim3", "se3"])
+def test_dense_render_batched_matches_jax(world, scale_on, log_occ_on):
+    """The dense route on [B, F] leading axes (B = F = 2; padded rays in one
+    frame, a bg ray without depth in each) against JAX's per-frame function
+    vmapped over both."""
     jp, tp = world
-    c = CASES[case]
     scenes = _scenes(3)
-    base = dict(scale_on=c["scale_on"], log_occ_on=c["log_occ_on"], occ_cutoff=0.15,
-                min_valid_sample=10, fwd_bf16=c.get("bf16", False))
-    # the in-radius counts pick the forward budget, then the band under that
-    # forward picks the Jacobian budget
-    probe = {}
-    _port(tp, scenes, TRC(jac_cap=N, fwd_cap=N, **base), probe)
-    in_radius = probe["in_radius"].numpy()
-    fwd_cap = {None: 0, "fit": int(in_radius.max()),
-               "overflow": int(0.6 * in_radius.min())}[c.get("fwd")]
-    probe = {}
-    _port(tp, scenes, TRC(jac_cap=N, fwd_cap=fwd_cap, **base), probe)
-    band = probe["band"].numpy()
-    assert band.min() >= 20, band
-    jac_cap = {"at": int(band.max()), "above": N, "overflow": int(band.min()) // 2}[c["jac"]]
-
-    stats = {}
-    cfg = dict(base, jac_cap=jac_cap, fwd_cap=fwd_cap)
-    got = _port(tp, scenes, TRC(**cfg), stats)
-    want = _jax(jp, scenes, JRC(**cfg))
+    kw = dict(scale_on=scale_on, log_occ_on=log_occ_on, occ_cutoff=0.15, min_valid_sample=10)
+    got = _port(tp, scenes, TRC(**kw))
+    want = _jax(jp, scenes, JRC(**kw))
     _held(got, want)
-    overflow = int(stats["band_overflow"].sum())
-    assert (overflow > 0) == (c["jac"] == "overflow"), (band, jac_cap)
-    if c.get("fwd") is not None:
-        assert (int(stats["fwd_overflow"].sum()) > 0) == (c["fwd"] == "overflow")
-    if c["jac"] != "overflow" and c.get("fwd") is None and not c.get("bf16"):
-        # nothing dropped: the compacted route is the dense route's math
-        dense = _port(tp, scenes, TRC(**dict(base, jac_cap=0)))
-        _held(got, type(dense)(*(t.numpy() for t in dense)))
-
-
-def test_compacted_route_is_deterministic_and_drops_the_last_band_samples(world):
-    """Two runs are bit-equal, and an overflowing budget keeps the first K
-    band samples of each (lane, frame) in index order."""
-    _, tp = world
-    scenes = _scenes(4)
-    cfg = TRC(scale_on=True, log_occ_on=True, occ_cutoff=0.15, min_valid_sample=10, jac_cap=40)
-    a, b = _port(tp, scenes, cfg), _port(tp, scenes, cfg)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    mask = torch.zeros(2, 3, 10, dtype=torch.bool)
-    mask[0, 0, [1, 4, 5, 9]] = True
-    mask[1, 2, [0, 2]] = True
-    sel, keep, rank = first_k(mask, 3)
-    assert sel[0, 0].tolist() == [1, 4, 5] and sel[1, 2].tolist() == [0, 2, 10]
-    assert sel[0, 1].tolist() == [10, 10, 10]
-    assert keep[0, 0].nonzero().reshape(-1).tolist() == [1, 4, 5]
-    assert rank[0, 0, [1, 4, 5]].tolist() == [0, 1, 2]
+    # every frame valid and rays in the band in each: the Jacobians are held
+    assert bool(got.frame_ok.all())
+    assert int(got.ray_ok.sum(-1).min()) >= 10, got.ray_ok.sum(-1)
 
 
 def test_bf16_forward_chain_matches_jax(world):
-    """B3's plain bf16 chain (the compacted forward with `fwd_bf16` on the
-    kernel route) against JAX's bf16 `decoder_apply`: the same products,
+    """B3's plain bf16 chain (bf16 retrieval scoring, `retrieval_score_bf16`)
+    against JAX's bf16 `decoder_apply`: the same products,
     summed in another order, so the median stays at f32 level and a row
     that rounds an activation one bf16 ulp the other way differs by at most
     a few bf16 ulps of the output."""
@@ -229,18 +176,26 @@ def test_bf16_forward_chain_matches_jax(world):
     assert np.median(d) <= 1e-6 and d.max() <= 2e-3, (np.median(d), d.max())
 
 
-@pytest.mark.parametrize("fwd_bf16", [False, True], ids=["f32", "bf16"])
-def test_normal_equations_compacted_match_jax(small, fwd_bf16):  # noqa: F811
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "packed"])
+def test_normal_equations_dense_match_jax(small, use_pallas, monkeypatch):  # noqa: F811
+    """The LM normal equations on the dense route, the decoder evaluated
+    plain or through the packed fwd+input-grad chain (B1's plain version),
+    against JAX's with its plain decoder."""
     jobs, tobs, T0, _ = _batch(small, 42)
-    kw = _cfg_kwargs(coarse_to_fine=False, fused_render=False, jac_cap=0, fwd_cap=0,
-                     fwd_bf16=fwd_bf16)
-    jc, tc = jconfig.JointOptConfig(**kw), tconfig.JointOptConfig(**kw)
-    assert tc.jac_cap_resolved == jc.jac_cap_resolved > 0
+    kw = _cfg_kwargs(coarse_to_fine=False, fused_render=False)
+    jc = jconfig.JointOptConfig(**kw, use_pallas=False)
+    tc = tconfig.JointOptConfig(**kw, use_pallas=use_pallas)
+    assert not takes_fused(tlm._render_config(tc, small["tspec"]), small["tspec"])
+    calls = []
+    chain = mlp_kernels.mlp_sdf_and_input_grad
+    monkeypatch.setattr(mlp_kernels, "mlp_sdf_and_input_grad",
+                        lambda *a, **k: calls.append(1) or chain(*a, **k))
     rng = np.random.default_rng(0)
     lat = (rng.normal(size=(2, 8)) * 0.1).astype(np.float32)
     i = np.array([0, 7], np.int32)
     H, b, failed = tne(small["tp"], small["tspec"], tc, tobs, torch.as_tensor(lat),
                        torch.as_tensor(T0), torch.as_tensor(i), CUBE_RADIUS)
+    assert bool(calls) == use_pallas
     for k in range(2):
         o = jax.tree_util.tree_map(lambda a: a[k], jobs)
         Hj, bj, fj = jne(small["jp"], small["jspec"], jc, o, jnp.asarray(lat[k]),
@@ -250,10 +205,10 @@ def test_normal_equations_compacted_match_jax(small, fwd_bf16):  # noqa: F811
         np.testing.assert_allclose(b[k].numpy(), np.asarray(bj), atol=2e-5 * float(np.abs(bj).max()), rtol=0)
 
 
-def _bench_compacted(small):  # noqa: F811
-    """(JAX cfg, port cfg, JAX obs, port obs, retrieved start latent and
-    pose) of the bench schedule on the compacted route, auto budgets."""
-    kw = _cfg_kwargs(fused_render=False, jac_cap=0, fwd_cap=0, coarse_max_iter=4)
+def _bench_dense(small):  # noqa: F811
+    """(JAX cfg, port cfg, JAX obs, port obs, T0, retrieved start latent and
+    pose) of the bench schedule on the dense route."""
+    kw = _cfg_kwargs(fused_render=False, coarse_max_iter=4)
     jobs, tobs, T0, _ = _batch(small, 42)
     lat, T, _, _ = tinit(small["tp"], small["tspec"], torch.as_tensor(small["table"]),
                          tobs.points_w, tobs.point_valid, T_init=torch.as_tensor(T0), **RETRIEVAL)
@@ -269,17 +224,17 @@ def _fine(lm, obs, cfg):
                                   robust_iter=0)
 
 
-def test_lm_iteration_compacted_matches_jax(small):  # noqa: F811
-    """Every LM iteration of the port's compacted bench solve (coarse and
-    fine phase) against JAX's iteration from the same state: the next
-    latent and pose within 1e-5."""
-    jc, tc, jobs, tobs, _, lat, T = _bench_compacted(small)
+def test_lm_iteration_dense_matches_jax(small):  # noqa: F811
+    """Every LM iteration of the port's dense bench solve (coarse and fine
+    phase) against JAX's iteration from the same state: the next latent and
+    pose within 1e-5."""
+    jc, tc, jobs, tobs, _, lat, T = _bench_dense(small)
     phases = [(tlm.subsample_observations(tobs, tc), jlm.subsample_observations(jobs, jc)),
               (_fine(tlm, tobs, tc), _fine(jlm, jobs, jc))]
     s = tstate.init_state(torch.as_tensor(lat), torch.as_tensor(T))
     steps = 0
     for (to, tcfg), (jo, jcfg) in phases:
-        assert tlm._render_config(tcfg, small["tspec"]).jac_cap == jcfg.jac_cap_resolved > 0
+        assert not takes_fused(tlm._render_config(tcfg, small["tspec"]), small["tspec"])
         packs = tlm.make_packs(small["tp"], small["tspec"], tcfg)
         s = tstate.init_state(s.latent, s.T_ow)
         for _ in range(tcfg.max_iter):
@@ -299,19 +254,19 @@ def test_lm_iteration_compacted_matches_jax(small):  # noqa: F811
     assert steps == 6
 
 
-def test_bench_path_compacted_matches_jax(small):  # noqa: F811
-    """The bench schedule on the compacted route (auto budgets, retrieval,
-    4 coarse + 2 fine iterations): iteration counts and flags equal, latents
-    and poses within 2e-4 (the bound of `tests/test_torch_slice.py`'s bench
-    path) of JAX's own run, or, for a lane that JAX's solve continued from
-    the port's first coarse iterate ends more than 2e-4 from JAX's own
-    run, of the nearest of the two. The port's and JAX's first iterates
-    agree within 1e-5 (asserted, the bound of each iteration above; measured
-    1.2e-6); lane 1 (the fixture's second fruit) is
-    such a lane: from the port's first iterate JAX ends 2.4e-3 from its own
-    run and within 2e-7 of the port (a sample on a band edge, as in
-    `tests/test_torch_challenge.py`), while lane 0 is held to JAX's own."""
-    jc, tc, jobs, tobs, T0, lat, T = _bench_compacted(small)
+def test_bench_path_dense_matches_jax(small):  # noqa: F811
+    """The bench schedule on the dense route (retrieval, 4 coarse + 2 fine
+    iterations): iteration counts and flags equal, latents and poses within
+    2e-4 (the bound of `tests/test_torch_slice.py`'s bench path) of JAX's
+    own run, or, for a lane that JAX's solve continued from the port's first
+    coarse iterate ends more than 2e-4 from JAX's own run, of the nearest of
+    the two. The port's and JAX's first iterates agree within 1e-5
+    (asserted, the bound of each iteration above). Lane 1 (the fixture's
+    second fruit) is such a lane: from the port's first iterate JAX ends
+    1.3e-3 from its own run and within 1e-6 of the port (measured 7.3e-7;
+    a sample on a band edge, as in `tests/test_torch_challenge.py`), while
+    lane 0 is held to JAX's own (measured 4.2e-7)."""
+    jc, tc, jobs, tobs, T0, lat, T = _bench_dense(small)
     want = jsolve(small["jp"], small["jspec"], jc, jnp.asarray(small["table"]), jobs,
                   jnp.asarray(T0), CUBE_RADIUS, **RETRIEVAL)
     got = tsolve(small["tp"], small["tspec"], tc, torch.as_tensor(small["table"]), tobs,
@@ -351,15 +306,40 @@ def test_bench_path_compacted_matches_jax(small):  # noqa: F811
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=[os.path.basename(p) for p in CONFIGS])
-def test_resolved_budgets_match_jax(path):
-    jc = jconfig.JointOptConfig.from_dict(jconfig.load_config(path))
-    tc = tconfig.JointOptConfig.from_dict(tconfig.load_config(path))
-    for jac_cap, fwd_cap in ((jc.jac_cap, jc.fwd_cap), (-1, -1), (0, 0), (77, 1234)):
-        j = dataclasses.replace(jc, jac_cap=jac_cap, fwd_cap=fwd_cap)
-        t = dataclasses.replace(tc, jac_cap=jac_cap, fwd_cap=fwd_cap)
-        assert (t.jac_cap_resolved, t.fwd_cap_resolved) == (j.jac_cap_resolved, j.fwd_cap_resolved)
-        t.check_ported()
-    assert tlm._render_config(tc, TSpec()).jac_cap == jc.jac_cap_resolved
+def test_shipped_configs_pass_the_port_check(path):
+    """No shipped YAML sets the compacted route's fields, so the refusal
+    reaches none of them."""
+    tconfig.JointOptConfig.from_dict(tconfig.load_config(path)).check_ported()
+
+
+@pytest.mark.parametrize("field, value", [("jac_cap", 0), ("fwd_cap", 0), ("fwd_bf16", True)],
+                         ids=["jac_cap", "fwd_cap", "fwd_bf16"])
+def test_compacted_settings_are_refused(small, field, value, monkeypatch):  # noqa: F811
+    """A config that sets one of the compacted route's fields (here the auto
+    budget, which the JAX package ignores on its fused route, as this config
+    would run) is refused by name by the batch pipelines' solve, the batched
+    LM solve and the server, before any retrieval or LM loop runs."""
+    cfg = tconfig.JointOptConfig(**_cfg_kwargs(**{field: value}))
+    assert cfg.fused_resolved(small["tspec"])
+    ran = []
+    monkeypatch.setattr(tlm, "_loop", lambda *a, **k: ran.append("lm"))
+    monkeypatch.setattr(twarm, "retrieval_init_batched", lambda *a, **k: ran.append("retrieval"))
+    _, tobs, T0, _ = _batch(small, 42)
+    lat0 = torch.zeros(2, small["tspec"].code_length)
+    T0 = torch.as_tensor(T0)
+    table = torch.as_tensor(small["table"])
+    calls = (
+        lambda: twarm.warmstart_solve(small["tp"], small["tspec"], cfg, table, tobs, lat0, T0,
+                                      CUBE_RADIUS, device="cpu"),
+        lambda: tlm.shape_pose_joint_opt_batched(small["tp"], small["tspec"], cfg, tobs, lat0,
+                                                 T0, CUBE_RADIUS, device="cpu"),
+        lambda: tserve.CompletionServer(small["tp"], small["tspec"], cfg, CUBE_RADIUS,
+                                        device="cpu"),
+    )
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=field):
+            call()
+    assert not ran, ran
 
 
 @pytest.mark.parametrize("scale_on", [True, False], ids=["sim3", "se3"])

@@ -135,8 +135,7 @@ def _iteration_as_one_function(params, spec, cfg, obs, state, cube_radius, pose_
                           T_co[..., 2, 3] + 0.8 * depth_range, cfg.n_sample_on_ray)
     rr = render_residuals(params, spec, latent, obs.rays, is_fg,
                           obs.ray_valid & obs.frame_valid[..., None], obs.depth_obs, T_oc, depths,
-                          depth_range, lm._render_config(cfg, spec), lane_active, packs.render,
-                          packs.fwd)
+                          depth_range, lm._render_config(cfg, spec), lane_active, packs.render)
     obs_count = rr.ray_ok.sum((1, 2)).to(f32)
     failed = obs_count == 0.0
     robust_active = i >= cfg.robust_iter

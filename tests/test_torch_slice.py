@@ -64,9 +64,11 @@ def test_config_parse_matches_jax(path):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tconfig.JointOptConfig(init_mode="other").check_ported()
-    # the compacted render paths are ported: accepted, explicit and auto
+    # the JAX package's compacted render route is not ported: refused by
+    # name, explicit and auto budgets alike
     for kw in (dict(jac_cap=64), dict(fwd_cap=128), dict(jac_cap=0, fwd_cap=0, fwd_bf16=True)):
-        tconfig.JointOptConfig(**kw).check_ported()
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            tconfig.JointOptConfig(**kw).check_ported()
     tconfig.JointOptConfig(init_mode="retrieval", trust_region=True, pose_polish_iters=2,
                            multi_start=3, rescue_starts=4).check_ported()
 
