@@ -472,7 +472,7 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
     assert all(gates32[k] <= RENDER_TOL["f32"][k] for k in RENDER_TOL["f32"]), (phase, gates32)
     ms = cuda_ms(lambda: render_kernel.fused_render(pk16, *rargs, **rkw), 5)
     plain_ms = cuda_ms(lambda: render_kernel.fused_render_plain(pk16, *rargs, **rkw), 2)
-    # the three launches timed apart on the same inputs
+    # the forward, the band and the sums timed apart on the same inputs
     rl = render_kernel.render_forward(pk16, *rargs, **rkw)
     offsets = render_kernel.band_offsets(rl.counts)
     cd, cm = render_kernel.render_band(pk16, latent, rl, offsets, sub_cfg.pose_dim)
@@ -499,7 +499,9 @@ def check_render(phase, pk16, pk32, sub_obs, sub_cfg, latent, T_ow, dev,
           f"launches | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}, bf16 tensor peak; {stats['active_samples']} samples fwd, "
           f"{stats['band_samples']} band samples bwd) | no single PyTorch call", flush=True)
-    print(f"  B2 launches, {phase}: forward + render {split['fwd']:.3f} ms | scan of the band "
+    fwd_rows = int(rl.fwd_offsets[-1])  # for the line below, as the total
+    print(f"  B2 launches, {phase}: forward (select, scan, pack, chain over {fwd_rows} in-radius "
+          f"rows of {stats['active_samples']}, render math) {split['fwd']:.3f} ms | scan of the band "
           f"counts {split['scan']:.3f} ms | band backward {split['band']:.3f} ms over {total} "
           f"band rows in {chunks} chunks of 64 (fill {total / max(64 * n_chunks, 1):.3f} of the "
           f"{n_chunks} chunks run, one wave of clusters of {mlp_kernels.CLUSTER} taking them in "
@@ -2910,12 +2912,11 @@ def main() -> int:
     records = {}
     b1_smem = {pk.bf16: mlp_kernels.wave_and_smem("mlp_fwd_grad", pk)[1] for pk in (pk32, pk16)}
     r_smem = render_kernel._lib().horti_render_smem
-    tr_gh = render_kernel.tiling(1, gh_cfg.n_sample_on_ray)[0]
     print(f"  dynamic shared memory a block at {pk32.n_mid + 1} x {pk32.D}: B1 f32 "
-          f"{b1_smem[False]} B, bf16 {b1_smem[True]} B; B2 forward + render (bf16, "
-          f"{tr_gh} rays) {r_smem(0, pk16.D, pk16.n_mid, pk16.in_dim, C, tr_gh, 1)} B, band "
-          f"backward bf16 {r_smem(1, pk16.D, pk16.n_mid, pk16.in_dim, C, tr_gh, 1)} B, f32 "
-          f"{r_smem(1, pk32.D, pk32.n_mid, pk32.in_dim, C, tr_gh, 0)} B", flush=True)
+          f"{b1_smem[False]} B, bf16 {b1_smem[True]} B; B2 forward chain bf16 "
+          f"{r_smem(0, pk16.D, pk16.n_mid, pk16.in_dim, 1)} B, band backward bf16 "
+          f"{r_smem(1, pk16.D, pk16.n_mid, pk16.in_dim, 1)} B, f32 "
+          f"{r_smem(1, pk32.D, pk32.n_mid, pk32.in_dim, 0)} B", flush=True)
 
     # the bench batch (bench.py: 32 synthetic peppers, seed 42); the
     # greenhouse config has the same observation shapes

@@ -3,13 +3,14 @@
 Counterpart of `hortimapping_tpu/ops/pallas_render.py::fused_render`, with
 the batch written out: one call covers [B fruits, F frames, R rays, M
 samples] (the JAX package vmaps a single-frame kernel over frames and
-fruits). The kernel is `csrc/fused_render.cu`, three launches: forward and
-render math per ray tile (`render_forward`), the input-gradient backward
-over the band rows of the whole launch packed in tile order
-(`band_offsets`, `render_band`), and the per-ray sums (`render_sum`). A CUDA
-tensor goes to them and nowhere else, a CPU tensor takes
-`fused_render_plain`, the dense math of `ops/render.py` returning the same
-outputs.
+fruits). The kernel is `csrc/fused_render.cu`: the forward
+(`render_forward`: each tile's in-radius samples listed, packed by a scan,
+the decoder run on them alone, then the render math per ray), the
+input-gradient backward over the band rows of the whole launch packed in
+tile order (`band_offsets`, `render_band`), and the per-ray sums
+(`render_sum`). A CUDA tensor goes to them and nowhere else, a CPU tensor
+takes `fused_render_plain`, the dense math of `ops/render.py` returning the
+same outputs.
 
 Outputs: jd, jm [B, F, R, pose_dim + C] per-ray Jacobian sums (pose block
 first) and res [B, F, R, 4] = (res_d, res_m, ray_ok, in-radius count). The
@@ -34,9 +35,9 @@ TILE_ROWS = 128             # samples per block: TR = TILE_ROWS // M rays (fused
 MAX_SMEM = 232448           # dynamic shared memory a block may use on the H100
 REC_FLOATS = 8              # floats a band record (fused_render.cu kRec)
 
-# launches of the three CUDA kernels since the counts were last set to 0:
-# forward + render (one per call: the count of the TPU kernel's port), band
-# backward, per-ray sums (`utils/trace.count`)
+# launches since the counts were last set to 0: the forward (one per call,
+# its stages together: the count of the TPU kernel's port), band backward,
+# per-ray sums (`utils/trace.count`)
 launches = 0
 launches_band = 0
 launches_sum = 0
@@ -158,6 +159,12 @@ def _lib() -> ctypes.CDLL:
         if not _argtypes_set:
             p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             streams = [p, p, p, p, p, fl]          # fwd, bwd, wl, b0, bm, bl
+            lib.horti_render_select.restype = i
+            lib.horti_render_select.argtypes = [
+                p, p, p, p,                        # pts, rinfo, fscal, active
+                i, i, i, i, i, i,                  # B, F, R, M, tr, tiles_x
+                p, p, p,                           # idx, fcounts, stream
+            ]
             lib.horti_render_forward.restype = i
             lib.horti_render_forward.argtypes = [
                 p, p, p, p, p, p,                  # pts, rinfo, depths, fscal, active, latent
@@ -165,6 +172,7 @@ def _lib() -> ctypes.CDLL:
                 i, i, i,                           # pose_dim, log_occ_on, occlusion_on
                 fl, fl, fl, fl,                    # occ_cutoff, sigma, occlusion_th, min_grad_th
                 i, i, i, i, *streams,              # D, n_mid, li, bf16, weight streams
+                p, p, p, p,                        # idx, foffsets, packed, sdf
                 p, p, p, p,                        # res, recs, counts, stream
             ]
             lib.horti_render_band.restype = i
@@ -181,7 +189,7 @@ def _lib() -> ctypes.CDLL:
                 p, p, p,                           # jd, jm, stream
             ]
             lib.horti_render_smem.restype = ctypes.c_long
-            lib.horti_render_smem.argtypes = [i] * 7
+            lib.horti_render_smem.argtypes = [i] * 5
             _argtypes_set = True
     return lib
 
@@ -197,20 +205,20 @@ def tiling(R: int, M: int) -> Tuple[int, int]:
 
 
 def ray_tile(pk: PackedDecoder, C: int, pose_dim: int, M: int) -> int:
-    """Rays per block (`tiling`); raises where a block of the forward or the
-    band kernel would not fit in shared memory."""
+    """Rays per tile (`tiling`); raises where a block of the forward's chain
+    or of the band kernel would not fit in shared memory."""
     tr, _ = tiling(1, M)
     lib = _lib()
     for kind in (0, 1):
-        smem = lib.horti_render_smem(kind, pk.D, pk.n_mid, pk.in_dim, C, tr, int(pk.bf16))
+        smem = lib.horti_render_smem(kind, pk.D, pk.n_mid, pk.in_dim, int(pk.bf16))
         if smem > MAX_SMEM:
             raise ValueError(f"the decoder needs {smem} bytes of shared memory a block")
     return tr
 
 
 class RenderLaunches(NamedTuple):
-    """What the three launches of one call share: the tiling and the
-    scratch (band records and counts) the forward fills."""
+    """What the launches of one call share: the tiling, and what the
+    forward fills."""
 
     B: int
     F: int
@@ -223,17 +231,21 @@ class RenderLaunches(NamedTuple):
     res: torch.Tensor      # [B, F, R, 4]
     recs: torch.Tensor     # [n_tiles, tr * M, 8] band records
     counts: torch.Tensor   # [n_tiles] int32 band rows a tile
+    fwd_offsets: torch.Tensor  # [n_tiles + 1] int32 scan of each tile's in-radius samples
 
 
 def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
                    lane_active, *, pose_dim, scale_on, log_occ_on, occ_cutoff,
                    occlusion_on, occlusion_th, min_grad_th) -> RenderLaunches:
-    """Launch 1: the forward and the render math of every tile; the
-    residuals and each tile's band records."""
+    """The forward and the render math of every tile: the residuals and each
+    tile's band records. Each tile lists its in-radius samples of valid rays
+    of active lanes (`horti_render_select`), a scan of the counts packs
+    them, and the decoder runs on those rows alone before the render math
+    (`horti_render_forward`). The host never reads the packed total."""
     B, F, R, M, _ = pts.shape
     C = latent.shape[-1]
     dev = pts.device
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     for name, t in (("pts", pts), ("latent", latent), ("depths", depths)):
         if t.dtype != f32 or t.device != dev:
             raise ValueError(f"{name} must be float32 on {dev}")
@@ -242,8 +254,6 @@ def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_rad
             raise ValueError(f"packed weight {name} must be on {dev}")
     if pk.in_dim != C + 3 or M < 2:
         raise ValueError(f"latent width {C} / samples {M} do not fit the decoder")
-    if B * F * R * M >= 2 ** 31:
-        raise ValueError("at most 2^31 samples a launch")
     delta_d, d_term_bg, bbx = _frame_scalars(depths, bbx_radius)
     rinfo = torch.stack(
         [depth_obs.to(f32), is_fg.to(f32).expand(B, F, R), ray_valid.to(f32)], dim=-1
@@ -256,22 +266,37 @@ def render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_rad
     depths = depths.contiguous()
     ray_tile(pk, C, pose_dim, M)
     tr, tiles_x = tiling(R, M)
-    n_tiles = tiles_x * F * B
-    res = torch.empty(B, F, R, 4, dtype=f32, device=dev)
-    recs = torch.empty(n_tiles, tr * M, REC_FLOATS, dtype=f32, device=dev)
-    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    n_tiles, cap = tiles_x * F * B, tr * M
+    if n_tiles * cap >= 2 ** 31:
+        raise ValueError("at most 2^31 samples a launch")
+    idx = torch.empty(n_tiles, cap, dtype=i32, device=dev)
+    fcounts = torch.empty(n_tiles + 1, dtype=i32, device=dev)   # 0, then each tile's
+    lib = _lib()
     rc = mlp_kernels.launch(
-        _lib().horti_render_forward, pts,
+        lib.horti_render_select, pts, pts.data_ptr(), rinfo.data_ptr(), fscal.data_ptr(),
+        active.data_ptr(), B, F, R, M, tr, tiles_x, idx.data_ptr(), fcounts.data_ptr(),
+    )
+    cuda_build.check(rc, "horti_render_select")
+    fwd_offsets = torch.cumsum(fcounts, 0, dtype=i32)
+    packed = torch.empty(n_tiles * cap, dtype=i32, device=dev)
+    sdf = torch.empty(B, F, R, M, dtype=f32, device=dev)
+    res = torch.empty(B, F, R, 4, dtype=f32, device=dev)
+    recs = torch.empty(n_tiles, cap, REC_FLOATS, dtype=f32, device=dev)
+    counts = torch.empty(n_tiles, dtype=i32, device=dev)
+    rc = mlp_kernels.launch(
+        lib.horti_render_forward, pts,
         pts.data_ptr(), rinfo.data_ptr(), depths.data_ptr(), fscal.data_ptr(),
         active.data_ptr(), latent.data_ptr(),
         B, F, R, M, C, tr, tiles_x, pose_dim, int(log_occ_on), int(occlusion_on),
         occ_cutoff, logistic_sigma(occ_cutoff), occlusion_th, min_grad_th,
         pk.D, pk.n_mid, pk.li, int(pk.bf16), *pk.stream_ptrs(), pk.bl,
+        idx.data_ptr(), fwd_offsets.data_ptr(), packed.data_ptr(), sdf.data_ptr(),
         res.data_ptr(), recs.data_ptr(), counts.data_ptr(),
     )
     cuda_build.check(rc, "horti_render_forward")
     trace.count(globals(), "launches")
-    return RenderLaunches(B, F, R, M, C, pose_dim + C, tr, tiles_x, res, recs, counts)
+    return RenderLaunches(B, F, R, M, C, pose_dim + C, tr, tiles_x, res, recs, counts,
+                          fwd_offsets)
 
 
 def band_offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -284,10 +309,10 @@ def band_offsets(counts: torch.Tensor) -> torch.Tensor:
 
 def render_band(pk, latent, rl: RenderLaunches, offsets: torch.Tensor,
                 pose_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch 2: the [J] depth and mask contributions of the packed band
-    rows, in full 64-row chunks. Their number, offsets[-1], is read on the
-    card (the host never waits for it), so cd and cm [n_tiles x cap, J]
-    hold the worst case; rows past offsets[-1] are left unwritten."""
+    """The [J] depth and mask contributions of the packed band rows, in
+    full 64-row chunks. Their number, offsets[-1], is read on the card (the
+    host never waits for it), so cd and cm [n_tiles x cap, J] hold the worst
+    case; rows past offsets[-1] are left unwritten."""
     dev = rl.res.device
     rows = rl.counts.shape[0] * rl.tr * rl.M
     cd = torch.empty(rows, rl.J, dtype=torch.float32, device=dev)
@@ -306,8 +331,8 @@ def render_band(pk, latent, rl: RenderLaunches, offsets: torch.Tensor,
 
 def render_sum(rl: RenderLaunches, offsets: torch.Tensor, cd: torch.Tensor,
                cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch 3: jd, jm [B, F, R, J], each ray's contributions summed in
-    sample order, times ray_ok."""
+    """jd, jm [B, F, R, J], each ray's contributions summed in sample
+    order, times ray_ok."""
     dev = rl.res.device
     jd = torch.empty(rl.B, rl.F, rl.R, rl.J, dtype=torch.float32, device=dev)
     jm = torch.empty_like(jd)
@@ -325,8 +350,13 @@ def _fused_render_cuda(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx
                        lane_active, **render_kw):
     rl = render_forward(pk, latent, pts, depth_obs, is_fg, ray_valid, depths, bbx_radius,
                         lane_active, **render_kw)
+    if trace.enabled():   # on the card, only while tracing
+        lanes = (torch.full((), rl.B, dtype=torch.int64, device=pts.device) if lane_active is None
+                 else (lane_active.reshape(-1).to(torch.float32) > 0.5).sum())
+        trace.add("render.fwd_rows", rl.fwd_offsets[-1])
+        trace.add("render.rows", lanes * (rl.F * rl.R * rl.M))
     offsets = band_offsets(rl.counts)
-    trace.add("render.band_rows", offsets[-1])   # on the card, only while tracing
+    trace.add("render.band_rows", offsets[-1])
     cd, cm = render_band(pk, latent, rl, offsets, render_kw["pose_dim"])
     jd, jm = render_sum(rl, offsets, cd, cm)
     return jd, jm, rl.res

@@ -49,6 +49,10 @@ that reads each:
   other less it.
 * `render.band_rows`, a device counter: the band rows of every fused render
   call on the card; `render.b2_band_roofline`.
+* `render.fwd_rows` and `render.rows`, device counters: the samples B2's
+  forward runs the decoder on (in radius, on a valid ray, of an active
+  lane) and every sample of the active lanes, over the same calls;
+  `render.fwd_row_share`.
 """
 
 from __future__ import annotations

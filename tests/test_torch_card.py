@@ -198,6 +198,20 @@ def _jtj_rel(got, want, ok, pose_dim):
     return relH, relH_blk
 
 
+def _bf16_render_gate(got, want, active, pose_dim):
+    """The fused-kernel gate of the bf16 render term (chip_smoke RENDER_TOL
+    bf16): median and p90 residual delta, share of rays off by more than
+    1e-3, relH and relH_blk."""
+    ok = (want[2][..., 2] > 0.5) & active[:, None, None]
+    assert int(ok.sum()) > 0
+    for k in (0, 1):
+        d = (got[2][..., k] - want[2][..., k]).abs()[ok].double()
+        assert float(d.median()) <= 2e-3 and float(torch.quantile(d, 0.9)) <= 4e-3
+        assert float((d > 1e-3).double().mean()) <= 0.2
+    relH, relH_blk = _jtj_rel(got, want, ok, pose_dim)
+    assert relH <= 0.35 and relH_blk <= 0.35, (relH, relH_blk)
+
+
 def _render_inputs(spec, dev, B, F, R, M, seed):
     rng = np.random.default_rng(seed)
     ang = np.concatenate([rng.normal(size=(B, F, R, 2)) * 0.1, np.ones((B, F, R, 1))], -1)
@@ -323,13 +337,7 @@ def test_render_band_crosses_chunks_tiles_and_clusters(cuda, dtype):
         for g, w in zip(got, want):
             assert float(_rel(g, w).max()) <= 2e-5
         return
-    ok = (want[2][..., 2] > 0.5) & args[-1][:, None, None]
-    for k in (0, 1):
-        d = (got[2][..., k] - want[2][..., k]).abs()[ok].double()
-        assert float(d.median()) <= 2e-3 and float(torch.quantile(d, 0.9)) <= 4e-3
-        assert float((d > 1e-3).double().mean()) <= 0.2
-    relH, relH_blk = _jtj_rel(got, want, ok, kw["pose_dim"])
-    assert relH <= 0.35 and relH_blk <= 0.35, (relH, relH_blk)  # chip_smoke RENDER_TOL bf16
+    _bf16_render_gate(got, want, args[-1], kw["pose_dim"])
 
 
 @pytest.mark.cuda
@@ -350,6 +358,82 @@ def test_render_empty_band(cuda):
     assert render_kernel.launches_band == before + 1
     for g, w in zip(got, want):
         assert not w.any() and torch.equal(g, w)
+
+
+def _in_radius_rows(args):
+    """The plain count of the samples the forward's chain takes: in radius,
+    on a valid ray, of an active lane."""
+    pts, ray_valid, bbx, active = args[1], args[4], args[6], args[7]
+    inside = (pts * pts).sum(-1) < (bbx * bbx)[..., None, None]
+    return int((inside & ray_valid[..., None] & active[:, None, None, None]).sum())
+
+
+def _traced_fused_render(pk, args, kw):
+    """fused_render with tracing forced on: its outputs and the render
+    term's device counters of that one call."""
+    from hortimapping_tpu_torch.utils import trace
+
+    trace.force(True)
+    try:
+        got = render_kernel.fused_render(pk, *args, **kw)
+        return got, trace.counters()
+    finally:
+        trace.force(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [10, 15, 22, 30])  # bench coarse, berry, bench fine, greenhouse
+def test_render_chain_skips_dead_samples(cuda, M):
+    """B2's forward runs the decoder on the in-radius samples of valid rays
+    of active lanes alone (R = 41: padding tiles at M = 22 and 30, padded
+    rays, a frozen lane): `render.fwd_rows` is their plain count and under
+    the active lanes' samples (`render.rows`), the outputs hold to the plain
+    version under the fused-kernel gate, and two launches agree bit for
+    bit."""
+    params, spec = _decoder("synthetic_pepper_32", 1, cuda)
+    args = _render_inputs(spec, cuda, B=3, F=3, R=41, M=M, seed=20 + M)
+    kw = dict(pose_dim=7, scale_on=True, log_occ_on=True, occ_cutoff=0.15, occlusion_on=True,
+              occlusion_th=0.03, min_grad_th=1e-6)
+    pk = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    got, counters = _traced_fused_render(pk, args, kw)
+    again = render_kernel.fused_render(pk, *args, **kw)
+    want = render_kernel.fused_render_plain(pk, *args, **kw)
+    torch.cuda.synchronize()
+    rows = _in_radius_rows(args)
+    assert counters["render.fwd_rows"] == rows
+    assert counters["render.rows"] == int(args[7].sum()) * 3 * 41 * M > rows > 0
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert float(torch.cat([t[-1].reshape(-1) for t in got]).abs().max()) == 0.0
+    assert torch.equal(got[2][..., 3], want[2][..., 3])  # in-radius counts
+    _bf16_render_gate(got, want, args[7], kw["pose_dim"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reach", ["none", "all"])
+def test_render_chain_none_or_all_in_radius(cuda, reach):
+    """B2 where no sample lies in radius (no chain row, no band: every
+    output the plain version's zeros) and where every sample does (the
+    chain takes every sample of the valid rays of active lanes, under the
+    fused-kernel gate)."""
+    params, spec = _decoder("synthetic_pepper_32", 2, cuda)
+    args = list(_render_inputs(spec, cuda, B=3, F=2, R=37, M=30, seed=31))
+    args[6] = torch.full_like(args[6], 1e-3 if reach == "none" else 10.0)  # bbx_radius
+    kw = dict(pose_dim=7, scale_on=True, log_occ_on=True, occ_cutoff=0.15, occlusion_on=True,
+              occlusion_th=0.03, min_grad_th=1e-6)
+    pk = mlp_kernels.pack_params(params, spec, torch.bfloat16)
+    rl = render_kernel.render_forward(pk, *args, **kw)
+    got, counters = _traced_fused_render(pk, args, kw)
+    want = render_kernel.fused_render_plain(pk, *args, **kw)
+    torch.cuda.synchronize()
+    valid = int((args[4] & args[7][:, None, None]).sum()) * 30
+    assert counters["render.fwd_rows"] == int(rl.fwd_offsets[-1]) == (0 if reach == "none" else valid)
+    if reach == "none":
+        assert counters["render.band_rows"] == 0
+        for g, w in zip(got, want):
+            assert not w.any() and torch.equal(g, w)
+        return
+    assert torch.equal(got[2][..., 3], want[2][..., 3])
+    _bf16_render_gate(got, want, args[7], kw["pose_dim"])
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 on the CPU: nothing recorded while tracing is off, spans nested per thread
 while a profiler session is on, on the profiler's clock, and the LM loop's
 and the server's spans where the work happens, with results bit-equal on
-and off. The device counter of the band rows is checked on the card.
+and off. The render term's device counters are checked on the card.
 
 The decoder and scenes are those of `tests/test_serve.py`
 (`synthetic_small_8`, 2 frames x 64 rays x 16 samples, 64 points), made
@@ -285,8 +285,11 @@ def cuda():
 
 @pytest.mark.cuda
 def test_band_rows_count_the_band_on_the_card(cuda):
-    """`render.band_rows` is the sum of `band_offsets(counts)[-1]` over the
-    fused render calls made while tracing is on, and nothing while off."""
+    """`render.band_rows` is the sum of the band's packed total over the
+    fused render calls made while tracing is on, `render.fwd_rows` the sum
+    of the forward's (the in-radius samples of valid rays of active lanes)
+    and `render.rows` the sum of the active lanes' samples; nothing while
+    off."""
     from hortimapping_tpu_torch.models.decoder import DecoderSpec
     from hortimapping_tpu_torch.models.workspace import params_from_jax
     from hortimapping_tpu_torch.ops import render_kernel
@@ -298,22 +301,33 @@ def test_band_rows_count_the_band_on_the_card(cuda):
     fused = dataclasses.replace(CFG, fused_render=True, fused_bf16=True)
     assert fused.fused_resolved(spec)
     obs, lat0, T0 = _batch(_requests(spec, 4, seed=11))
-    totals = []
-    orig = render_kernel.band_offsets
+    totals = {"render.band_rows": [], "render.fwd_rows": [], "render.rows": []}
+    fwd, band = render_kernel.render_forward, render_kernel.render_band
 
-    def spy(counts):
-        out = orig(counts)
-        totals.append(int(out[-1]))
-        return out
+    def spy_fwd(*args, **kw):
+        rl = fwd(*args, **kw)
+        lanes = args[8] if len(args) > 8 else kw.get("lane_active")
+        n_act = rl.B if lanes is None else int(lanes.sum())
+        totals["render.fwd_rows"].append(int(rl.fwd_offsets[-1]))
+        totals["render.rows"].append(n_act * rl.F * rl.R * rl.M)
+        return rl
 
-    render_kernel.band_offsets = spy
+    def spy_band(pk, latent, rl, offsets, pose_dim):
+        totals["render.band_rows"].append(int(offsets[-1]))
+        return band(pk, latent, rl, offsets, pose_dim)
+
+    render_kernel.render_forward, render_kernel.render_band = spy_fwd, spy_band
     try:
         trace.force(False)
+        before = trace.counters()   # an earlier session's, if any
         lm.shape_pose_joint_opt_batched(params, spec, fused, obs, lat0, T0, RADIUS, device=cuda)
-        assert totals and trace.counters() == {}
-        totals.clear()
+        assert all(totals.values()) and trace.counters() == before
+        for v in totals.values():
+            v.clear()
         trace.force(True)
         lm.shape_pose_joint_opt_batched(params, spec, fused, obs, lat0, T0, RADIUS, device=cuda)
-        assert totals and trace.counters() == {"render.band_rows": sum(totals)}
+        assert all(totals.values())
+        assert trace.counters() == {k: sum(v) for k, v in totals.items()}
+        assert 0 < sum(totals["render.fwd_rows"]) < sum(totals["render.rows"])
     finally:
-        render_kernel.band_offsets = orig
+        render_kernel.render_forward, render_kernel.render_band = fwd, band
