@@ -1,11 +1,13 @@
 """What decides `correct`: the program's answers of the window, or a sample
 of them drawn from the seed, held against the plain reference once the
 window has closed. Nine numbers, each beside its limit from the cell's
-file:
+file (eight under the mean start, which reports no `retrieval_gap`):
 
-  retrieval_gap   the widest gap between the reference's score of the code
-                  a fruit's solve started from and the reference's best
-                  score over the whole table (retrieval's choice);
+  retrieval_gap   the widest gap between the reference's score of the
+                  (code, scale) a fruit's solve started from and the
+                  reference's best score over the whole table at every
+                  scale of the configured grid (retrieval's choice); only
+                  under `init_mode: retrieval`;
   step_code_p75   the 75th percentile, over sampled (batch, iteration,
                   lane), of the gap in code units between the code an LM
                   step of the program reached and the code the reference's
@@ -38,6 +40,24 @@ file:
                   of their distance to the zero level set of the returned
                   code under the returned pose, in voxels (iso-surfacing,
                   tied to the returned answer).
+
+The solver modes the check follows, as the configuration states them:
+  * the start: `init_mode: retrieval` scores the start against the table
+    over `linspace(retrieval_scale_min, retrieval_scale_max, n_scales)`,
+    each scale composed onto the pose the fruit was given as
+    diag(s, s, s, 1) @ T_init (one scale: the pose itself); any other start
+    (the table mean) is not scored, and a retrieval start that was never
+    recorded reads inf;
+  * the fixed-lambda LM: each step from the program's input iterate,
+    damped by `lm_lambda_0`;
+  * the trust region (`trust_region`): each step from the point the
+    program took it from (the trial it accepted, or the accepted point it
+    rolled back to), assembled at that point's own iteration index and
+    damped by the lane's own lambda; a quarter of the steps drawn are
+    roll-backs where there are any. The watched residuals stay at the
+    iteration's input iterate, where the program computed them. An answer
+    is held against the step that produced it: the last trial of a lane
+    that converged, else the step whose output the lane last accepted.
 
 The pool of fruits is the same for every seed (see the traffic drivers);
 the seed draws which answers, steps, lanes and batches are compared.
@@ -101,6 +121,51 @@ def _finite(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, torch.full_like(x, float("inf")))
 
 
+def _retrieval_gap(ctx, answers, loc, rng, chk) -> float:
+    """The widest, over sampled fruits, of the reference's score of the
+    (code, scale) retrieval started the fruit from less the reference's
+    best over the table at every scale of the grid; inf where a start was
+    not recorded, is no code of the table, or (over a grid of scales) is
+    no scale of the grid composed onto the pose the fruit was given."""
+    solver, rec, dev = ctx.config["solver"], ctx.rec, ctx.dev
+    cand = [d for d in answers if rec.batches[loc[d.key][0]].start_latent is not None]
+    pick = _sample(rng, cand, chk["retrieval_fruits"])
+    if not pick:
+        return float("inf")
+    gap = 0.0
+    n_pts = solver["retrieval_score_pts"]
+    S = solver["retrieval_n_scales"]
+    obs = _obs_batch(ctx.pool, [d.scene for d in pick], dev)
+    T0 = torch.as_tensor(np.stack([d.T_ow0 for d in pick])).to(dev)
+    pts = obs[5][:, :n_pts] @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
+    if S == 1:
+        scores = R.score_codes(ctx.reference, ctx.table, pts, obs[6][:, :n_pts])[:, None]
+    else:
+        G, P = pts.shape[:2]
+        grid = R.scale_grid(solver["retrieval_scale_min"], solver["retrieval_scale_max"], S).to(dev)
+        valid = obs[6][:, None, :n_pts].expand(G, S, P).reshape(G * S, P)
+        scores = R.score_codes(ctx.reference, ctx.table,
+                               (grid[None, :, None, None] * pts[:, None]).reshape(G * S, P, 3),
+                               valid).reshape(G, S, -1)
+        # each grid scale composed onto the given pose: [G, S, 4, 4]
+        sig = torch.cat([grid[:, None].expand(S, 3), torch.ones(S, 1, device=dev)], 1)
+        T_grid = sig[None, :, :, None] * T0[:, None]
+    for j, d in enumerate(pick):
+        bi, lane = loc[d.key]
+        b = rec.batches[bi]
+        hit = torch.nonzero((ctx.table == b.start_latent[lane][None]).all(1)).reshape(-1)
+        if hit.numel() == 0:
+            return float("inf")
+        k = 0
+        if S > 1:
+            err = (T_grid[j] - b.start_T[lane][None].to(T_grid.dtype)).abs().flatten(1).max(1).values
+            k = int(err.argmin())
+            if not float(err[k]) <= 1e-5 * (1.0 + float(T0[j].abs().max())):
+                return float("inf")
+        gap = max(gap, float(scores[j, k, hit[0]] - scores[j].min()))
+    return gap
+
+
 def run(ctx, win) -> Tuple[Dict[str, Tuple[float, float]], bool]:
     chk = settings(ctx.workload)
     lim = chk["limits"]
@@ -118,31 +183,18 @@ def run(ctx, win) -> Tuple[Dict[str, Tuple[float, float]], bool]:
     nums: Dict[str, float] = {}
 
     with torch.no_grad():
-        # ---- retrieval: the start code against the reference's scores
-        cand = [d for d in answers if rec.batches[loc[d.key][0]].start_latent is not None]
-        pick = _sample(rng, cand, chk["retrieval_fruits"])
-        gap = 0.0 if pick else float("inf")
-        n_pts = solver["retrieval_score_pts"]
-        if solver["retrieval_n_scales"] != 1:
-            raise ValueError("the check scores at unit scale only")
-        if pick:
-            obs = _obs_batch(ctx.pool, [d.scene for d in pick], dev)
-            T0 = torch.as_tensor(np.stack([d.T_ow0 for d in pick])).to(dev)
-            pts = obs[5][:, :n_pts] @ T0[:, :3, :3].transpose(1, 2) + T0[:, None, :3, 3]
-            scores = R.score_codes(dec, ctx.table, pts, obs[6][:, :n_pts])
-            for j, d in enumerate(pick):
-                bi, lane = loc[d.key]
-                code = rec.batches[bi].start_latent[lane]
-                hit = torch.nonzero((ctx.table == code[None]).all(1)).reshape(-1)
-                if hit.numel() == 0:
-                    gap = float("inf")
-                    continue
-                gap = max(gap, float(scores[j, hit[0]] - scores[j].min()))
-        nums["retrieval_gap"] = gap
+        # ---- retrieval: the start (code, scale) against the reference's scores
+        if solver["init_mode"] == "retrieval":
+            nums["retrieval_gap"] = _retrieval_gap(ctx, answers, loc, rng, chk)
 
-        # ---- LM steps at the program's own iterates
+        # ---- LM steps at the program's own iterates (under the trust region,
+        # from the point each step was taken from)
+        tr = bool(solver["trust_region"])
         acts = [[(~(it.done_in | it.failed_in)).cpu().numpy() for it in b.iters]
                 for b in rec.batches]
+        if tr:
+            host = [[{"i": it.i_in.cpu().numpy(), "lin_i": it.lin_i.cpu().numpy(),
+                      "conv": it.converged.cpu().numpy()} for it in b.iters] for b in rec.batches]
         steps, watched = [], []
         for bi, b in enumerate(rec.batches):
             for ii, it in enumerate(b.iters):
@@ -152,7 +204,20 @@ def run(ctx, win) -> Tuple[Dict[str, Tuple[float, float]], bool]:
                         steps.append((bi, ii, lane))
                         if lane in b.watch:
                             watched.append((bi, ii, lane))
-        jobs = [(t, None) for t in _sample(rng, steps, chk["steps"])]
+
+        def rolled(t) -> bool:
+            h = host[t[0]][t[1]]
+            return bool(h["lin_i"][t[2]] != h["i"][t[2]])
+
+        if tr:
+            # accepted and rolled-back steps both: a quarter of the draw from
+            # the roll-backs where there are any
+            pick = _sample(rng, [t for t in steps if rolled(t)], chk["steps"] // 4)
+            drawn = set(pick)
+            pick += _sample(rng, [t for t in steps if t not in drawn], chk["steps"] - len(pick))
+            jobs = [(t, None) for t in sorted(pick)]
+        else:
+            jobs = [(t, None) for t in _sample(rng, steps, chk["steps"])]
         jobs += [(t, "watch") for t in _sample(rng, watched, chk["residual_steps"])]
         # each sampled fruit's last step, onto the answer it returned
         finals = []
@@ -164,6 +229,11 @@ def run(ctx, win) -> Tuple[Dict[str, Tuple[float, float]], bool]:
             if b.rescue and lane in [b.rescue["lanes"][a] for a in b.rescue.get("accepted", [])]:
                 continue   # a rescued lane's answer comes from the rescue's own solve
             last = [ii for ii in range(len(b.iters)) if acts[bi][ii][lane]]
+            if last and tr and not host[bi][last[-1]]["conv"][lane]:
+                # a lane that stopped unconverged returns its last accepted
+                # point: the output of the step from iteration lin_i - 1
+                at = host[bi][last[-1]]["lin_i"][lane] - 1
+                last = [ii for ii in last if host[bi][ii]["i"][lane] == at][-1:]
             if last:
                 finals.append((bi, last[-1], lane))
         jobs += [(t, "final") for t in _sample(rng, finals, chk["final_steps"])]
@@ -197,7 +267,19 @@ def run(ctx, win) -> Tuple[Dict[str, Tuple[float, float]], bool]:
                 lat0 = torch.stack([it.lat_in[l] for it, l in zip(its, idx)])
                 T0 = torch.stack([it.T_in[l] for it, l in zip(its, idx)])
                 i0 = torch.stack([it.i_in[l] for it, l in zip(its, idx)])
-                lat_r, T_r, terms = R.lm_step(dec, view[0], lat0, T0, i0, ctx.program.cube_radius, F32)
+                lam = None
+                if tr:
+                    at_input = (lat0, T0, i0)
+                    lat0 = torch.stack([it.lin_lat[l] for it, l in zip(its, idx)])
+                    T0 = torch.stack([it.lin_T[l] for it, l in zip(its, idx)])
+                    i0 = torch.stack([it.lin_i[l] for it, l in zip(its, idx)])
+                    lam = torch.stack([it.lam[l] for it, l in zip(its, idx)])
+                lat_r, T_r, terms = R.lm_step(dec, view[0], lat0, T0, i0, ctx.program.cube_radius,
+                                              F32, lam)
+                if tr and any(kind == "watch" and rolled((bi, ii, lane))
+                              for bi, ii, lane, kind in part):
+                    # the residuals the program computed, at the input iterate
+                    terms = R.normal_equations(dec, view[0], *at_input, ctx.program.cube_radius, F32)
                 lat_p = [torch.as_tensor(by_key[k].latent).to(dev) if kind == "final"
                          else it.lat_out[lane] for (_, _, lane, kind), it, k in zip(part, its, keys)]
                 T_p = [torch.as_tensor(by_key[k].T_ow).to(dev) if kind == "final"
@@ -217,6 +299,9 @@ def run(ctx, win) -> Tuple[Dict[str, Tuple[float, float]], bool]:
                     raw.append({"kind": kind or "step", "batch": bi, "iter": ii, "lane": lane,
                                 "code_gap": float(g_c[j]), "code_step": float(l_c[j]),
                                 "pose_gap": float(g_p[j]), "pose_step": float(l_p[j])})
+                    if tr:
+                        raw[-1].update(rolled_back=rolled((bi, ii, lane)),
+                                       lam=float(its[j].lam[lane]))
                 for j, (bi, ii, lane, kind) in enumerate(part):
                     if kind != "watch":
                         continue

@@ -4,6 +4,11 @@ one precision below the one the configuration states (f32 -> bf16,
 bf16 -> fp8). Its answers must come out not correct; the readings it gives
 set the upper end of each limit. Never used by a benchmark run: by
 `control.py` on the chip and by the tests on the CPU.
+
+The algebra is lowered where each solver assembles its normal equations:
+the fixed-lambda iteration through `lm.normal_equations` (damped H and b),
+the trust region's, which calls `lm._assemble_normal_equations` itself,
+there (undamped H and b; it damps them by each lane's lambda).
 """
 
 from __future__ import annotations
@@ -19,9 +24,10 @@ def lowered(precision: dict) -> dict:
     return {k: LOWER[v] for k, v in precision.items()}
 
 
-def install(dec: R.Decoder, precision: dict):
+def install(dec: R.Decoder, precision: dict, trust_region: bool = False):
     """Patch the kernels' entry points for the rest of the process; returns
-    the undo list. `precision`: the lowered precision of each part."""
+    the undo list. `precision`: the lowered precision of each part;
+    `trust_region`: the configuration's solver."""
     from hortimapping_tpu_torch.ops import mlp_kernels, render_kernel
     from hortimapping_tpu_torch.optim import lm
 
@@ -75,6 +81,14 @@ def install(dec: R.Decoder, precision: dict):
     patch(mlp_kernels, "mlp_sdf_shared_latent", shared)
     patch(render_kernel, "fused_render", render)
     patch(lm, "normal_equations", normal_equations)
+    if trust_region:
+        orig_asm = lm._assemble_normal_equations
+
+        def assemble(*a, **k):
+            H, b, failed, cost = orig_asm(*a, **k)
+            return R._round(H, p["algebra"]), R._round(b, p["algebra"]), failed, cost
+
+        patch(lm, "_assemble_normal_equations", assemble)
     return undo
 
 

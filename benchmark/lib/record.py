@@ -3,16 +3,21 @@ around the program's entry points, installed for the run and taken off at
 its end.
 
 Every run keeps, for each batch the window drives, the lanes' fruits; for
-a few batches drawn from the seed it also keeps the start codes retrieval
-chose, for each LM iteration of the main solve its input and output iterate
-(references to the program's tensors, nothing copied), for a few lanes
-drawn from the seed the render and SDF residuals of that iteration, and the
-SDF grids meshed: what the check holds against the reference. A traced run
-also records spans (host time, closed by a synchronize) and the work each
-kernel family was asked for, for the per-layer readers: the render and SDF
-terms' from each LM iteration's own per-lane flags and observations, the
-retrieval's from the codes and points scored, the grid's from the fruits
-meshed.
+a few batches drawn from the seed it also keeps the start codes and poses
+retrieval chose (one scale or a grid of them), for each LM iteration of the
+main solve its input and output iterate (references to the program's
+tensors, nothing copied), for a few lanes drawn from the seed the render and
+SDF residuals of that iteration, and the SDF grids meshed: what the check
+holds against the reference. Both solvers are wrapped: the fixed-lambda
+iteration (`lm.lm_iteration`) and the trust region's (`lm.lm_iteration_tr`),
+whose iterations also keep the point each lane's step was taken from (the
+trial it accepted, or the accepted point it rolled back to), the iteration
+index that point's normal equations were assembled at, each lane's lambda
+and whether it converged. A traced run also records spans (host time,
+closed by a synchronize) and the work each kernel family was asked for, for
+the per-layer readers: the render and SDF terms' from each LM iteration's
+own per-lane flags and observations, the retrieval's from the codes and
+points scored, the grid's from the fruits meshed.
 """
 
 from __future__ import annotations
@@ -38,6 +43,14 @@ class Iteration:
     lat_out: Optional[torch.Tensor] = None
     T_out: Optional[torch.Tensor] = None
     watched: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # the trust region's: the point each lane's step was taken from, the
+    # iteration index its normal equations were assembled at, the lane's
+    # lambda, and whether it left converged
+    lin_lat: Optional[torch.Tensor] = None
+    lin_T: Optional[torch.Tensor] = None
+    lin_i: Optional[torch.Tensor] = None
+    lam: Optional[torch.Tensor] = None
+    converged: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -48,6 +61,8 @@ class Batch:
     kept: bool = True               # the batch keeps what the check reads
     n_iters: int = 0                # LM iterations of its main solve
     start_latent: Optional[torch.Tensor] = None
+    start_T: Optional[torch.Tensor] = None   # the start pose, its retrieved scale composed
+    tr_asm: Optional[torch.Tensor] = None    # [B] assembly index of each lane's accepted point
     grids: Optional[torch.Tensor] = None   # the watched lanes' SDF grids, as meshed
     iters: List[Iteration] = dataclasses.field(default_factory=list)
     rescue: Optional[dict] = None
@@ -155,29 +170,36 @@ def install(rec: Recorder):
         def f(*a, **k):
             out = orig(*a, **k)
             if rec.keeping() and rec.cur.start_latent is None:
-                rec.cur.start_latent = out[0]
+                rec.cur.start_latent, rec.cur.start_T = out[0], out[1]
             return out
         return f
 
     undo.append(_wrap(warmstart, "retrieval_init_batched", retrieval))
 
+    def counted(cfg, obs, state):
+        """Counts an LM iteration of either solver; its input iterate."""
+        if rec.on and rec.cur is not None and not rec._rescue:
+            rec.cur.n_iters += 1
+        if rec.on and rec.traced:
+            # the work this iteration needs: the lanes that run it (neither
+            # done nor failed on entry), their valid rays of valid frames
+            # and their valid surface points
+            act = ~(state.done | state.failed)
+            rays = (obs.ray_valid & obs.frame_valid[..., None]).sum((1, 2))
+            rec.work["render"].append(((rays * act).sum(), cfg.n_sample_on_ray))
+            rec.work["sdf"].append((obs.point_valid.sum(-1) * act).sum())
+
+    def kept_iteration(cfg, obs, state) -> Iteration:
+        return Iteration((obs.rays.shape[1], obs.rays.shape[2], cfg.n_sample_on_ray,
+                          obs.points_w.shape[1]), state.latent, state.T_ow, state.i,
+                         state.done, state.failed)
+
     def iteration(orig):
         def f(params, spec, cfg, obs, state, *a, **k):
-            if rec.on and rec.cur is not None and not rec._rescue:
-                rec.cur.n_iters += 1
-            if rec.on and rec.traced:
-                # the work this iteration needs: the lanes that run it (neither
-                # done nor failed on entry), their valid rays of valid frames
-                # and their valid surface points
-                act = ~(state.done | state.failed)
-                rays = (obs.ray_valid & obs.frame_valid[..., None]).sum((1, 2))
-                rec.work["render"].append(((rays * act).sum(), cfg.n_sample_on_ray))
-                rec.work["sdf"].append((obs.point_valid.sum(-1) * act).sum())
+            counted(cfg, obs, state)
             if not rec.keeping():
                 return orig(params, spec, cfg, obs, state, *a, **k)
-            it = Iteration((obs.rays.shape[1], obs.rays.shape[2], cfg.n_sample_on_ray,
-                            obs.points_w.shape[1]), state.latent, state.T_ow, state.i,
-                           state.done, state.failed)
+            it = kept_iteration(cfg, obs, state)
             rec._iter = it
             try:
                 new = orig(params, spec, cfg, obs, state, *a, **k)
@@ -189,6 +211,37 @@ def install(rec: Recorder):
         return f
 
     undo.append(_wrap(lm, "lm_iteration", iteration))
+
+    def iteration_tr(orig):
+        def f(params, spec, cfg, obs, ts, *a, **k):
+            s = ts.base
+            counted(cfg, obs, s)
+            if not rec.keeping():
+                return orig(params, spec, cfg, obs, ts, *a, **k)
+            it = kept_iteration(cfg, obs, s)
+            rec._iter = it
+            try:
+                new = orig(params, spec, cfg, obs, ts, *a, **k)
+            finally:
+                rec._iter = None
+            # a lane whose accepted point is its trial assembled it at this
+            # iteration; one that rolled back keeps the index its accepted
+            # point was assembled at (a solve's first iteration accepts every
+            # lane, so an index left from an earlier solve is never taken)
+            took = ((new.acc_latent == s.latent).all(-1)
+                    & (new.acc_T_ow == s.T_ow).flatten(1).all(-1))
+            prev = rec.cur.tr_asm
+            if prev is None or prev.shape != s.i.shape:
+                prev = s.i
+            it.lin_i = rec.cur.tr_asm = torch.where(took, s.i, prev)
+            it.lat_out, it.T_out = new.base.latent, new.base.T_ow
+            it.lin_lat, it.lin_T = new.acc_latent, new.acc_T_ow
+            it.lam, it.converged = new.lam, new.base.converged
+            rec.cur.iters.append(it)
+            return new
+        return f
+
+    undo.append(_wrap(lm, "lm_iteration_tr", iteration_tr))
 
     def watched(kind):
         def make(orig):

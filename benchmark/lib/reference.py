@@ -8,11 +8,13 @@ Pieces, each in the precision it is given (`f32`, `bf16` or `fp8`: a lower
 one rounds every matmul operand to that type and accumulates in f32, which
 is how the control puts a cheaper arithmetic in the program's place):
   * the DeepSDF decoder (latent_in skip, tanh output) and its input gradient;
-  * retrieval scores: mean |clamped sdf| of every code over a point set;
+  * retrieval scores: mean |clamped sdf| of every code over a point set,
+    and the grid of candidate scales;
   * the LM's views of a fruit (coarse and fine subsamples) and its normal
     equations: the occlusion-aware depth/mask render term over the dense
     [rays x samples] grid, the SDF term on the surface points, the code
-    prior, the damping; the step, its Sim(3) update (`exp_sim3_ref`, the
+    prior, the damping (the fixed lambda, or one a lane); the step, its
+    Sim(3) update (`exp_sim3_ref`, the
     original method's own update with its quirk, copied from
     `hortimapping_tpu_torch/ops/lie.py`);
   * the distance of mesh vertices to the decoder's zero level set.
@@ -21,7 +23,7 @@ is how the control puts a cheaper arithmetic in the program's place):
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +93,12 @@ class Decoder:
 def load_decoder(root: str, dec_cfg: dict, device) -> Decoder:
     return Decoder(os.path.join(root, dec_cfg["asset"], "native", "latest.npz"), dec_cfg["dims"],
                    dec_cfg["latent_in"], dec_cfg["clamping_distance"], device)
+
+
+def scale_grid(scale_min: float, scale_max: float, n_scales: int) -> torch.Tensor:
+    """The candidate scales of retrieval: n_scales evenly from scale_min to
+    scale_max (f32, [S])."""
+    return torch.linspace(scale_min, scale_max, n_scales, dtype=torch.float64).float()
 
 
 def score_codes(dec: Decoder, codes: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor,
@@ -273,11 +281,14 @@ class Terms(NamedTuple):
 
 
 def normal_equations(dec: Decoder, v: View, latent: torch.Tensor, T_ow: torch.Tensor,
-                     i: torch.Tensor, cube_radius: float, prec: Dict[str, str]) -> Terms:
+                     i: torch.Tensor, cube_radius: float, prec: Dict[str, str],
+                     lam: Optional[torch.Tensor] = None) -> Terms:
     """The damped LM normal equations of lanes (latent [B, C], T_ow [B, 4, 4],
     iteration i [B]) on view v. `prec` gives the precision of the render
     term's decoder (`render`), of the SDF term's (`sdf`) and of the normal
-    equations' algebra (`algebra`)."""
+    equations' algebra (`algebra`). `lam` [B], where given, is each lane's
+    damping lambda (the trust region's) in place of the fixed `lm_lambda_0`,
+    in the same form; `i` decides the robust weights."""
     cfg = v.cfg
     B, C = latent.shape
     pd = 7 if cfg["scale_on"] else 6
@@ -356,10 +367,11 @@ def normal_equations(dec: Decoder, v: View, latent: torch.Tensor, T_ow: torch.Te
         H[:, idx, idx] += cfg["rot_damp"]
     if cfg["lm_on"]:
         diag = torch.diagonal(H, dim1=-2, dim2=-1)
+        lam = cfg["lm_lambda_0"] if lam is None else lam[:, None, None]
         if cfg["lm_eye"]:
-            H = H + cfg["lm_lambda_0"] * diag.max(-1).values[:, None, None] * torch.eye(D, device=dev)
+            H = H + lam * diag.max(-1).values[:, None, None] * torch.eye(D, device=dev)
         else:
-            H = H + cfg["lm_lambda_0"] * torch.diag_embed(diag)
+            H = H + lam * torch.diag_embed(diag)
     return Terms(_round(H, alg), _round(b, alg), failed, res_d, res_m, ray_ok, r_r)
 
 
@@ -409,10 +421,11 @@ def exp_se3(x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_step(dec: Decoder, v: View, latent: torch.Tensor, T_ow: torch.Tensor, i: torch.Tensor,
-            cube_radius: float, prec: Dict[str, str]):
-    """One LM iteration of the lanes: (latent', T_ow', Terms). A lane with no
-    valid ray keeps its state."""
-    t = normal_equations(dec, v, latent, T_ow, i, cube_radius, prec)
+            cube_radius: float, prec: Dict[str, str], lam: Optional[torch.Tensor] = None):
+    """One LM iteration of the lanes: (latent', T_ow', Terms), damped by the
+    fixed `lm_lambda_0` or by each lane's `lam` [B]. A lane with no valid ray
+    keeps its state."""
+    t = normal_equations(dec, v, latent, T_ow, i, cube_radius, prec, lam)
     delta = torch.linalg.solve_ex(t.H, t.b[..., None])[0][..., 0]
     pd = 7 if v.cfg["scale_on"] else 6
     dT = exp_sim3_ref(delta[:, :pd]) if v.cfg["scale_on"] else exp_se3(delta[:, :pd])

@@ -88,7 +88,8 @@ def batch_answer_altered(ctx):
 
 
 def lowered(ctx):
-    undo = control.install(ctx.reference, control.lowered(ctx.config["precision"]))
+    undo = control.install(ctx.reference, control.lowered(ctx.config["precision"]),
+                           trust_region=ctx.config["solver"]["trust_region"])
     return lambda: control.uninstall(undo)
 
 
